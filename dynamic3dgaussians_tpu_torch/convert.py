@@ -1,0 +1,60 @@
+"""Bring the JAX package's parameters and raster settings into the port.
+
+The port never imports the JAX package: callers hand over plain values,
+e.g. `params_from_jax(jax.tree.map(np.asarray, params), "cuda")`, and any
+object with the reference RasterConfig's attributes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import numpy as np
+import torch
+
+from dynamic3dgaussians_tpu_torch.device import DeviceLike, resolve_device
+from dynamic3dgaussians_tpu_torch.ops.rasterize import RasterConfig
+
+# Reference settings that exist only for the TPU. Each maps to the values
+# that leave the numerics of the default path unchanged; anything else is
+# refused rather than silently rendered differently.
+_TPU_ONLY = {
+    "pack_records": (False,),                   # f16 transport of records
+    "power_impl": ("vpu", "mxu"),               # mxu_fused: log2-op rows
+    "kernel_precision": ("highest", "high"),    # default: bf16 matmuls
+}
+_SEMANTIC = tuple(f.name for f in dataclasses.fields(RasterConfig))
+
+
+def params_from_jax(params: Dict[str, np.ndarray],
+                    device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """Host arrays of the reference's parameter dict -> tensors on `device`
+    (default `cuda`); floating arrays become float32."""
+    dev = resolve_device(device)
+    out = {}
+    for k, v in params.items():
+        a = np.asarray(v)
+        if np.issubdtype(a.dtype, np.floating):
+            a = a.astype(np.float32, copy=False)
+        # a copy: host arrays may be read-only views
+        out[k] = torch.tensor(a, device=dev)
+    return out
+
+
+def raster_config_from_jax(cfg) -> RasterConfig:
+    """Port RasterConfig from the reference's semantic fields.
+
+    Raises ValueError when a TPU-only field is set to a value that changes
+    the numerics (pack_records=True, power_impl="mxu_fused",
+    kernel_precision="default"); the other TPU-only fields (scan_impl,
+    tile_batch, unsort_impl, the tiled path's capacities) only change how
+    the TPU schedules the same result and are ignored.
+    """
+    for name, ok in _TPU_ONLY.items():
+        val = getattr(cfg, name, ok[0])
+        if val not in ok:
+            raise ValueError(f"RasterConfig.{name}={val!r} changes the "
+                             f"render's numerics and has no counterpart in "
+                             f"the port (allowed: {ok})")
+    return RasterConfig(**{name: getattr(cfg, name) for name in _SEMANTIC})

@@ -1,0 +1,211 @@
+"""Sorted-pair rasterization, forward half: sort, record table, composite.
+
+Port of the forward path of `dynamic3dgaussians_tpu/ops/sorted_raster.py`:
+the (tile, depth) key, the merged record table of `_prepare` and
+`render_sorted`. Differences in the mechanics, not in the result:
+
+  * The reference sorts every one of the K*N emission slots with its record
+    payload. Here the live pairs are compacted first (one host read of their
+    count per frame, as the CUDA original reads back its pair count), only
+    their keys are sorted, and the table is built by gathering per-gaussian
+    columns through the sorted gaussian ids. Sentinel slots never reach the
+    table; the kernel never reads past a tile's segment, and the table keeps
+    the reference's chunk of zero slack at its end.
+  * depth_mode "total" and the two-key fallback (no depth bits left in a
+    32-bit key) sort one 64-bit key, (key << 32) | float bits of depth.
+    Live pairs have depth > near > 0, where float bits order like floats.
+
+Sorts break ties arbitrarily, as the reference's unstable sorts do.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from dynamic3dgaussians_tpu_torch.ops.binning import emit_pairs, tile_ranges
+from dynamic3dgaussians_tpu_torch.ops.cuda.raster_fwd import (
+    GEOM_ROWS, composite_tiles, composite_tiles_torch)
+from dynamic3dgaussians_tpu_torch.ops.projection import Projected
+
+DEPTH_MODES = ("quantized", "exact", "total")
+LOG2E = 1.4426950408889634
+
+
+def depth_key_bits(num_tiles: int) -> int:
+    """Bits of quantized depth in a fused (tile | depth) int32 key, or 0 when
+    the tile grid leaves fewer than 18 (then a two-key sort is used)."""
+    bits_tile = max(1, num_tiles.bit_length())
+    bits_z = 31 - bits_tile
+    return bits_z if bits_z >= 18 else 0
+
+
+def affine_depth_range(live: torch.Tensor, depth: torch.Tensor):
+    """(dmin, inv_width) of the live pairs' depth for the affine key."""
+    big = torch.tensor(3e38, dtype=torch.float32, device=depth.device)
+    dmin = torch.min(torch.where(live, depth, big))
+    dmax = torch.max(torch.where(live, depth, -big))
+    inv_width = 1.0 / torch.clamp(dmax - dmin, min=1e-20)
+    return dmin, inv_width
+
+
+def fuse_tile_depth_key_affine(tile_key: torch.Tensor, depth: torch.Tensor,
+                               bits_z: int, dmin: torch.Tensor,
+                               inv_width: torch.Tensor) -> torch.Tensor:
+    """tile << bits_z | round(u * (2^bits_z - 1)), u = (depth - dmin) /
+    (dmax - dmin) over the frame's live pairs: the depth bits spread
+    linearly over the scene's depth range. int32, non-negative."""
+    u = torch.clamp((depth - dmin) * inv_width, 0.0, 1.0)
+    top = (1 << bits_z) - 1
+    # clamp AFTER the cast: for bits_z > 24, float32(2^bits_z - 1) rounds up
+    # to 2^bits_z, and u == 1.0 would otherwise overflow into the tile bits
+    zq = torch.clamp((u * float(top) + 0.5).to(torch.int32), max=top)
+    return (tile_key << bits_z) | zq
+
+
+def dequantize_depth_key_affine(key: torch.Tensor, bits_z: int,
+                                dmin: torch.Tensor, inv_width: torch.Tensor
+                                ) -> torch.Tensor:
+    """Bucket depth back out of an affine key (error <= half a bucket)."""
+    zq = (key & ((1 << bits_z) - 1)).to(torch.float32)
+    top = torch.tensor(float((1 << bits_z) - 1), dtype=torch.float32,
+                       device=key.device)
+    return dmin + zq / (top * inv_width)
+
+
+def _key64(hi32: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+    """(hi32, depth) as one int64 key; depth > 0 for every live pair."""
+    bits = depth.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return (hi32.to(torch.int64) << 32) | bits
+
+
+def prepare_records(tile_key: torch.Tensor, gid: torch.Tensor,
+                    table: torch.Tensor, depth: torch.Tensor, *,
+                    n_chan: int, num_tiles: int, chunk: int, bits_z: int,
+                    depth_mode: str):
+    """Sort the live pairs and build the merged record table.
+
+    table: (8 + CV, N) per-gaussian record columns, the depth row left to
+    fill; depth: (N,) view depth. Returns (rec_t (8 + CV, NE_pad), starts,
+    counts) with NE_pad = (ceil(n_live / chunk) + 1) * chunk.
+    """
+    dev = table.device
+    live_idx = torch.nonzero(tile_key < num_tiles).squeeze(1)
+    n_live = int(live_idx.numel())
+    ne_pad = (-(-n_live // chunk) + 1) * chunk
+    rec_t = torch.zeros((table.shape[0], ne_pad), dtype=torch.float32,
+                        device=dev)
+    if n_live == 0:
+        zeros = torch.zeros((num_tiles,), dtype=torch.int32, device=dev)
+        return rec_t, zeros, zeros.clone()
+    lt = tile_key[live_idx]
+    lg = gid[live_idx].long()
+    ld = depth[lg]
+    if bits_z > 0:
+        dmin, inv_w = affine_depth_range(torch.ones_like(lt, dtype=torch.bool),
+                                         ld)
+        key = fuse_tile_depth_key_affine(lt, ld, bits_z, dmin, inv_w)
+        if depth_mode == "total":
+            perm = torch.argsort(_key64(key, ld))
+        else:
+            perm = torch.argsort(key)
+        sk = key[perm]
+        if depth_mode == "quantized":
+            sd = dequantize_depth_key_affine(sk, bits_z, dmin, inv_w)
+        else:
+            sd = ld[perm]
+    else:
+        perm = torch.argsort(_key64(lt, ld))
+        sd = ld[perm]
+    starts, counts = tile_ranges(lt[perm].contiguous(), num_tiles)
+    rec_t[:, :n_live] = table[:, lg[perm]]
+    rec_t[GEOM_ROWS + n_chan, :n_live] = sd
+    return rec_t, starts.contiguous(), counts.contiguous()
+
+
+def _untile(x, grid_h, grid_w, th, tw, h, w, c):
+    img = x.reshape(grid_h, grid_w, th, tw, c).permute(0, 2, 1, 3, 4)
+    return img.reshape(grid_h * th, grid_w * tw, c)[:h, :w]
+
+
+def sorted_records(h: int, w: int, proj: Projected, colors: torch.Tensor,
+                   opacity: torch.Tensor, *, tile_h: int = 16,
+                   tile_w: int = 16, chunk: int = 128,
+                   max_tiles_per_gaussian: int = 8, fused_key: bool = True,
+                   depth_mode: str = "quantized", exact_cull: bool = True,
+                   enum_cap: int = 0):
+    """Emission, sort and merged record table: the kernel's inputs.
+
+    colors (N, C) linear channels, opacity (N,) activated and zeroed for
+    invalid gaussians. Returns (rec_t, starts, counts, n_dropped_rect).
+    """
+    if depth_mode not in DEPTH_MODES:
+        raise ValueError(f"depth_mode must be one of {DEPTH_MODES}, got "
+                         f"{depth_mode!r}")
+    grid_h, grid_w = -(-h // tile_h), -(-w // tile_w)
+    num_tiles = grid_h * grid_w
+    n_chan = colors.shape[-1]
+    k_cap = max_tiles_per_gaussian
+
+    cap = (enum_cap or max(16, 2 * k_cap)) if exact_cull else 0
+    tile_key, gid, n_dropped_rect = emit_pairs(
+        proj, tile_h, tile_w, grid_h, grid_w, k_cap,
+        opacity=opacity if exact_cull else None, enum_cap=cap)
+
+    # Conic rows are pre-scaled by log2(e): the kernel works in base-2 log
+    # space (exp2/log2).
+    log2e = torch.tensor(LOG2E, dtype=torch.float32, device=opacity.device)
+    cv = n_chan + 2
+    cv_pad = -(-cv // 8) * 8
+    n = opacity.shape[0]
+    table = torch.zeros((GEOM_ROWS + cv_pad, n), dtype=torch.float32,
+                        device=opacity.device)
+    table[0], table[1] = proj.x2d, proj.y2d
+    table[2] = proj.conic_a * log2e
+    table[3] = proj.conic_b * log2e
+    table[4] = proj.conic_c * log2e
+    table[5] = opacity
+    table[GEOM_ROWS:GEOM_ROWS + n_chan] = colors.T
+    table[GEOM_ROWS + n_chan + 1] = 1.0        # depth row is filled per pair
+
+    bits_z = depth_key_bits(num_tiles) if fused_key else 0
+    rec_t, starts, counts = prepare_records(
+        tile_key, gid, table, proj.depth, n_chan=n_chan, num_tiles=num_tiles,
+        chunk=chunk, bits_z=bits_z, depth_mode=depth_mode)
+    return rec_t, starts, counts, n_dropped_rect
+
+
+def render_sorted(h: int, w: int, proj: Projected, colors: torch.Tensor,
+                  opacity: torch.Tensor, bg: torch.Tensor, *,
+                  tile_h: int = 16, tile_w: int = 16, chunk: int = 128,
+                  max_tiles_per_gaussian: int = 8, fused_key: bool = True,
+                  depth_mode: str = "quantized", exact_cull: bool = True,
+                  enum_cap: int = 0, use_kernel: bool = True):
+    """Sorted-pair render (inference).
+
+    colors (N, C) linear channels, opacity (N,) activated and zeroed for
+    invalid gaussians, bg (C,) composited as bg * (1 - alpha). use_kernel
+    picks the CUDA kernel (`composite_tiles`) or its plain version.
+
+    Returns (channels (H, W, C), depth (H, W), alpha (H, W), n_dropped_rect).
+    """
+    grid_h, grid_w = -(-h // tile_h), -(-w // tile_w)
+    n_chan = colors.shape[-1]
+    rec_t, starts, counts, n_dropped_rect = sorted_records(
+        h, w, proj, colors, opacity, tile_h=tile_h, tile_w=tile_w,
+        chunk=chunk, max_tiles_per_gaussian=max_tiles_per_gaussian,
+        fused_key=fused_key, depth_mode=depth_mode, exact_cull=exact_cull,
+        enum_cap=enum_cap)
+    composite = composite_tiles if use_kernel else composite_tiles_torch
+    raw, _, _ = composite(rec_t, starts, counts, num_tiles=grid_h * grid_w,
+                          grid_w=grid_w, tile_h=tile_h, tile_w=tile_w,
+                          chunk=chunk)
+
+    alpha_t = raw[..., n_chan + 1]
+    depth_t = raw[..., n_chan]
+    chan_t = raw[..., :n_chan] + (1.0 - alpha_t[..., None]) * bg
+    channels = _untile(chan_t, grid_h, grid_w, tile_h, tile_w, h, w, n_chan)
+    depth_img = _untile(depth_t[..., None], grid_h, grid_w, tile_h, tile_w,
+                        h, w, 1)[..., 0]
+    alpha_img = _untile(alpha_t[..., None], grid_h, grid_w, tile_h, tile_w,
+                        h, w, 1)[..., 0]
+    return channels, depth_img, alpha_img, n_dropped_rect
