@@ -1,7 +1,8 @@
 """PyTorch + CUDA (Hopper) port of dynamic3dgaussians_tpu.
 
 The JAX package `dynamic3dgaussians_tpu` is the reference; this package
-imports `torch` and numpy only, never `jax` and nothing of the JAX package.
+imports `torch`, numpy and scipy, never `jax` and nothing of the JAX
+package.
 Its module tree mirrors the reference where a module has a counterpart
 (`ops/projection.py` <-> `ops/projection.py`, ...). Every TPU kernel on a
 ported path is a hand-written Hopper kernel under `csrc/`, bound with ctypes
@@ -10,6 +11,8 @@ ported path is a hand-written Hopper kernel under `csrc/`, bound with ctypes
 Entry points run on `cuda` unless the caller passes `device=...`; without
 CUDA and without an explicit device they raise (see `device.resolve_device`).
 
-Ported so far: the forward render of a trained scene (`cli visualize`),
-inference only.
+Ported so far: the forward render of a trained scene (`cli visualize`)
+and the first timestep of training (`cli train` with one timestep: the
+render's gradient through the backward kernel, losses, Adam,
+densification, compaction, the kNN graph and the RCM reorder).
 """

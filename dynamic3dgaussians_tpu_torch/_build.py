@@ -112,6 +112,9 @@ def load_library() -> ctypes.CDLL:
     lib.d3g_raster_fwd.argtypes = [vp, i64, i32, vp, vp, i32, i32, i32, i32,
                                    i32, vp, vp, vp, vp]
     lib.d3g_raster_fwd.restype = i32
+    lib.d3g_raster_bwd.argtypes = [vp, i64, i32, vp, vp, vp, vp, vp, i32, i32,
+                                   i32, i32, i32, vp, vp]
+    lib.d3g_raster_bwd.restype = i32
     lib.d3g_error_string.argtypes = [i32]
     lib.d3g_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,8 +1,9 @@
-"""Bring the JAX package's parameters and raster settings into the port.
+"""Bring the JAX package's training state and raster settings into the port.
 
 The port never imports the JAX package: callers hand over plain values,
-e.g. `params_from_jax(jax.tree.map(np.asarray, params), "cuda")`, and any
-object with the reference RasterConfig's attributes.
+e.g. `params_from_jax(jax.tree.map(np.asarray, params), "cuda")`, numpy
+copies of `variables` and of the Adam state's fields, and any object with
+the reference RasterConfig's attributes.
 """
 
 from __future__ import annotations
@@ -40,6 +41,26 @@ def params_from_jax(params: Dict[str, np.ndarray],
         # a copy: host arrays may be read-only views
         out[k] = torch.tensor(a, device=dev)
     return out
+
+
+def variables_from_jax(variables: Dict[str, np.ndarray],
+                       device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """Host arrays of the reference's `variables` (alive mask, scene
+    radius, densification statistics, ...) -> tensors on `device`
+    (default `cuda`); floating arrays become float32, booleans stay bool."""
+    return params_from_jax(variables, device)
+
+
+def adam_state_from_jax(mu: Dict[str, np.ndarray], nu: Dict[str, np.ndarray],
+                        step, device: DeviceLike = None):
+    """The reference's AdamState, given as numpy copies of its mu and nu
+    dicts and its step count -> the port's `optim.AdamState` on `device`
+    (default `cuda`)."""
+    from dynamic3dgaussians_tpu_torch.train.optim import AdamState
+    dev = resolve_device(device)
+    return AdamState(mu=params_from_jax(mu, dev), nu=params_from_jax(nu, dev),
+                     step=torch.tensor(int(np.asarray(step)),
+                                       dtype=torch.int32, device=dev))
 
 
 def raster_config_from_jax(cfg) -> RasterConfig:

@@ -21,11 +21,12 @@
 // runs; the test sits at the same chunk boundaries), so n_active, which the
 // backward kernel consumes, means the same thing on both sides.
 //
-// The alpha chain (power, exp2, clamps, 1/255 gate) is written with
-// explicitly rounded intrinsics (__fmul_rn, ...) so nvcc cannot contract it
-// into FMAs: alpha is then bitwise the value the plain PyTorch version
-// computes on the same card, and a cell sitting on the 1/255 gate falls on
-// the same side in both. The accumulation may use FMAs.
+// The alpha chain (power, exp2, clamps, 1/255 gate) is `alpha_cell` of
+// alpha.cuh, shared with the backward kernel K2 (raster_bwd.cu): it is
+// written with explicitly rounded intrinsics (__fmul_rn, ...) so nvcc cannot
+// contract it into FMAs, alpha is then bitwise the value the plain PyTorch
+// version and K2 compute on the same card, and a cell sitting on the 1/255
+// gate falls on the same side in all three. The accumulation may use FMAs.
 //
 // What bounds it on an H100: operations. Each record is read from device
 // memory once per tile that holds it (a few MB per frame), while every cell
@@ -38,12 +39,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "alpha.cuh"
+
 namespace {
 
-constexpr int GEOM_ROWS = 8;
-constexpr float ALPHA_EPS = 1.0f / 255.0f;
-constexpr float ALPHA_MAX = 0.99f;
-constexpr float LOG2_T_DEAD = -13.287712379549449f;  // log2(1e-4)
+using d3g::GEOM_ROWS;
 
 template <int CV>
 __global__ void raster_fwd_kernel(const float* __restrict__ rec, int64_t ne_pad,
@@ -74,7 +74,7 @@ __global__ void raster_fwd_kernel(const float* __restrict__ rec, int64_t ne_pad,
   for (; k < n_chunks; ++k) {
     // the stop test doubles as the barrier that protects the previous
     // chunk's shared records from being overwritten while still read
-    if (k > 0 && !__syncthreads_or(log2t > LOG2_T_DEAD)) break;
+    if (k > 0 && !__syncthreads_or(log2t > d3g::LOG2_T_DEAD)) break;
     const int lo = max(shift - k * chunk, 0);
     const int hi = min(shift + count - k * chunk, chunk);
     const int width = hi - lo;
@@ -88,21 +88,10 @@ __global__ void raster_fwd_kernel(const float* __restrict__ rec, int64_t ne_pad,
 
     float cum = 0.0f;  // exclusive in-chunk sum of log2(1 - alpha)
     for (int j = lo; j < hi; ++j) {
-      const float dx = __fsub_rn(smem[0 * chunk + j], px);
-      const float dy = __fsub_rn(smem[1 * chunk + j], py);
-      const float ca = smem[2 * chunk + j];
-      const float cb = smem[3 * chunk + j];
-      const float cc = smem[4 * chunk + j];
-      const float op = smem[5 * chunk + j];
-      const float quad = __fadd_rn(__fmul_rn(__fmul_rn(ca, dx), dx),
-                                   __fmul_rn(__fmul_rn(cc, dy), dy));
-      const float power = fminf(
-          __fsub_rn(__fmul_rn(-0.5f, quad),
-                    __fmul_rn(__fmul_rn(cb, dx), dy)), 0.0f);
-      const float alpha = fminf(ALPHA_MAX, __fmul_rn(op, exp2f(power)));
-      if (!(alpha >= ALPHA_EPS)) continue;  // contributes exact zeros
-      const float lg = log2f(__fsub_rn(1.0f, alpha));
-      const float w = alpha * exp2f(cum + log2t);
+      const d3g::AlphaCell cell = d3g::alpha_cell(smem, chunk, j, px, py);
+      if (!d3g::alpha_live(cell)) continue;  // contributes exact zeros
+      const float lg = d3g::log2_one_minus(cell.alpha);
+      const float w = cell.alpha * exp2f(cum + log2t);
 #pragma unroll
       for (int c = 0; c < CV; ++c)
         acc[c] += w * smem[(GEOM_ROWS + c) * chunk + j];

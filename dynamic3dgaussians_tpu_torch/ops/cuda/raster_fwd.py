@@ -64,6 +64,20 @@ def _check_args(rec_t, tile_starts, tile_counts, num_tiles, tile_h, tile_w,
     return n_val
 
 
+def tile_pixel_coords(num_tiles: int, grid_w: int, tile_h: int, tile_w: int,
+                      device):
+    """(T, P) float32 pixel centers (px, py) of every tile's pixels, row-major
+    within a tile."""
+    f32 = torch.float32
+    tile = torch.arange(num_tiles, device=device)
+    lin = torch.arange(tile_h * tile_w, device=device)
+    px = ((tile % grid_w).to(f32) * tile_w)[:, None] + (lin % tile_w).to(f32)
+    py = (torch.div(tile, grid_w, rounding_mode="floor").to(f32)
+          * tile_h)[:, None] + torch.div(lin, tile_w,
+                                         rounding_mode="floor").to(f32)
+    return px, py
+
+
 def composite_tiles_torch(rec_t: torch.Tensor, tile_starts: torch.Tensor,
                           tile_counts: torch.Tensor, *, num_tiles: int,
                           grid_w: int, tile_h: int, tile_w: int,
@@ -85,12 +99,7 @@ def composite_tiles_torch(rec_t: torch.Tensor, tile_starts: torch.Tensor,
         counts == 0, torch.zeros_like(counts),
         torch.div(shift + counts + chunk - 1, chunk, rounding_mode="floor"))
 
-    tile = torch.arange(num_tiles, device=dev)
-    lin = torch.arange(p, device=dev)
-    px = ((tile % grid_w).to(f32) * tile_w)[:, None] + (lin % tile_w).to(f32)
-    py = (torch.div(tile, grid_w, rounding_mode="floor").to(f32)
-          * tile_h)[:, None] + torch.div(lin, tile_w,
-                                         rounding_mode="floor").to(f32)
+    px, py = tile_pixel_coords(num_tiles, grid_w, tile_h, tile_w, dev)
     px, py = px[:, :, None], py[:, :, None]            # (T, P, 1)
     lane = torch.arange(chunk, device=dev)
 

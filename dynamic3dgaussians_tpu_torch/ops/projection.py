@@ -133,10 +133,14 @@ def project(means3d: torch.Tensor,
             rotations: Optional[torch.Tensor],
             cam: Camera,
             scale_modifier: float = 1.0,
-            cov3d_precomp: Optional[torch.Tensor] = None) -> Projected:
+            cov3d_precomp: Optional[torch.Tensor] = None,
+            mean2d_probe_ndc: Optional[torch.Tensor] = None) -> Projected:
     """Project (N, 3) gaussians to screen space.
 
     `cov3d_precomp` (N, 6) packed covariance overrides scales/rotations.
+    `mean2d_probe_ndc` (N, 2), zeros, is added to the NDC position before
+    the pixel mapping: its gradient is the densification statistic, in NDC
+    units as the CUDA original accumulates it.
     `valid` combines the near cull (z > near), the positive-determinant cull
     and the zero-extent cull (3-sigma rect misses the image).
     """
@@ -146,8 +150,13 @@ def project(means3d: torch.Tensor,
     py_hom = M[1, 0] * mx + M[1, 1] * my + M[1, 2] * mz + M[1, 3]
     p_w_hom = M[3, 0] * mx + M[3, 1] * my + M[3, 2] * mz + M[3, 3]
     inv_w = 1.0 / (p_w_hom + 1e-7)
-    x2d = ndc2pix(px_hom * inv_w, cam.width)
-    y2d = ndc2pix(py_hom * inv_w, cam.height)
+    ndc_x = px_hom * inv_w
+    ndc_y = py_hom * inv_w
+    if mean2d_probe_ndc is not None:
+        ndc_x = ndc_x + mean2d_probe_ndc[..., 0]
+        ndc_y = ndc_y + mean2d_probe_ndc[..., 1]
+    x2d = ndc2pix(ndc_x, cam.width)
+    y2d = ndc2pix(ndc_y, cam.height)
 
     V = cam.w2c
     depth = V[2, 0] * mx + V[2, 1] * my + V[2, 2] * mz + V[2, 3]

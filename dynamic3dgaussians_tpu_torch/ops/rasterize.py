@@ -1,19 +1,24 @@
 """The render entry point: RasterConfig, RenderOutput, render.
 
-Port of `dynamic3dgaussians_tpu/ops/rasterize.py` (forward only). Methods:
+Port of `dynamic3dgaussians_tpu/ops/rasterize.py`. Methods:
 
-  "reference"  the O(N*H*W) oracle (`rasterize_ref.py`)
-  "torch"      the sorted-pair path with K1's plain PyTorch version
-  "cuda"       the sorted-pair path through the CUDA kernel (K1)
+  "reference"  the O(N*H*W) oracle (`rasterize_ref.py`); gradients by
+               plain autograd through it
+  "torch"      the sorted-pair path with the plain PyTorch versions of the
+               forward and backward tile kernels (K1, K2)
+  "cuda"       the sorted-pair path through the CUDA kernels K1 and K2
   "auto"       "cuda" on a CUDA device, "torch" on the CPU
 
-The reference's TPU-only knobs (power_impl, scan_impl, tile_batch,
-pack_records, unsort_impl, kernel_precision) are not ported: the kernel
-computes the default power_impl="vpu" semantics in float32.
+On the sorted-pair paths the gradient goes through one
+`torch.autograd.Function` (`sorted_raster._SortComposite`), the
+counterpart of the reference's custom_vjp; autograd covers projection, SH
+and the activations around it. `grad_mask` is the reference's `_grad_gate`
+(the original's `label` gradient gating) and `mean2d_probe_ndc` its
+densification probe.
 
-Inference only: the backward kernel is not ported yet, so a call that
-would need gradients raises instead of returning an image whose gradient is
-silently wrong.
+The reference's TPU-only knobs (power_impl, scan_impl, tile_batch,
+pack_records, unsort_impl, kernel_precision) are not ported: the kernels
+compute the default power_impl="vpu" semantics in float32.
 """
 
 from __future__ import annotations
@@ -71,9 +76,10 @@ class RenderOutput:
     n_dropped_rect: Optional[torch.Tensor] = None   # () int32
 
 
-def _needs_grad(*tensors) -> bool:
-    return torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in tensors)
+def _grad_gate(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """x with its gradient zeroed where mask == 0; the value is unchanged."""
+    m = mask.reshape(mask.shape + (1,) * (x.dim() - mask.dim())).to(x.dtype)
+    return x * m + (x * (1.0 - m)).detach()
 
 
 def render(cam: Camera,
@@ -89,17 +95,21 @@ def render(cam: Camera,
            sh_degree: int = 0,
            cov3d_precomp: Optional[torch.Tensor] = None,
            scale_modifier: float = 1.0,
+           mean2d_probe_ndc: Optional[torch.Tensor] = None,
+           grad_mask: Optional[torch.Tensor] = None,
            method: str = "auto",
            config: Optional[RasterConfig] = None,
            device: DeviceLike = None) -> RenderOutput:
-    """Render gaussians (inference).
+    """Differentiable gaussian-splat render.
 
     means3d (N, 3); colors (N, 3) linear RGB, ignored when `sh` (N, K, 3) is
     given; opacity (N,) or (N, 1) activated; scales (N, 3) activated and
     rotations (N, 4) unit wxyz, unless cov3d_precomp (N, 6) is given;
     extra_channels (N, E) composited in the same pass over a zero
-    background; bg (3,) RGB background. Runs on `device` (default `cuda`),
-    where `cam` must already be; the other inputs are moved there.
+    background; bg (3,) RGB background; mean2d_probe_ndc (N, 2) zeros whose
+    gradient is the densification statistic; grad_mask (N,) {0, 1} zeroes
+    every gradient of the masked gaussians. Runs on `device` (default
+    `cuda`), where `cam` must already be; the other inputs are moved there.
     """
     if method not in METHODS:
         raise ValueError(f"unknown render method {method!r}; one of "
@@ -107,11 +117,6 @@ def render(cam: Camera,
     dev = resolve_device(device)
     if cam.device != dev:
         raise ValueError(f"camera is on {cam.device}, render device is {dev}")
-    if _needs_grad(means3d, colors, opacity, scales, rotations,
-                   extra_channels, sh, cov3d_precomp):
-        raise NotImplementedError(
-            "render is inference-only here (no backward kernel yet); call it "
-            "under torch.no_grad() or with inputs that do not require grad")
     if method == "auto":
         method = "cuda" if dev.type == "cuda" else "torch"
     if method == "cuda" and dev.type != "cuda":
@@ -126,10 +131,21 @@ def render(cam: Camera,
     scales, rotations = on_dev(scales), on_dev(rotations)
     extra_channels, sh = on_dev(extra_channels), on_dev(sh)
     cov3d_precomp = on_dev(cov3d_precomp)
+    mean2d_probe_ndc, grad_mask = on_dev(mean2d_probe_ndc), on_dev(grad_mask)
 
     opacity = opacity.reshape(opacity.shape[0], -1)[:, 0]
     if sh is not None:
         colors = sh_to_color(sh_degree, sh, means3d, cam.cam_center)
+    if grad_mask is not None:
+        means3d = _grad_gate(means3d, grad_mask)
+        colors = _grad_gate(colors, grad_mask)
+        opacity = _grad_gate(opacity, grad_mask)
+        if scales is not None:
+            scales = _grad_gate(scales, grad_mask)
+        if rotations is not None:
+            rotations = _grad_gate(rotations, grad_mask)
+        if extra_channels is not None:
+            extra_channels = _grad_gate(extra_channels, grad_mask)
     all_chan = colors if extra_channels is None else torch.cat(
         [colors, extra_channels], dim=-1)
     n_rgb = colors.shape[-1]
@@ -139,7 +155,8 @@ def render(cam: Camera,
         full_bg[:n_rgb] = on_dev(bg)
 
     proj = project(means3d, scales, rotations, cam,
-                   scale_modifier=scale_modifier, cov3d_precomp=cov3d_precomp)
+                   scale_modifier=scale_modifier, cov3d_precomp=cov3d_precomp,
+                   mean2d_probe_ndc=mean2d_probe_ndc)
 
     if method == "reference":
         out = render_primitives_reference(cam, proj, all_chan, opacity,

@@ -1,8 +1,11 @@
-"""Sorted-pair rasterization, forward half: sort, record table, composite.
+"""Sorted-pair rasterization: sort, record table, composite, and back.
 
-Port of the forward path of `dynamic3dgaussians_tpu/ops/sorted_raster.py`:
-the (tile, depth) key, the merged record table of `_prepare` and
-`render_sorted`. Differences in the mechanics, not in the result:
+Port of `dynamic3dgaussians_tpu/ops/sorted_raster.py`: the (tile, depth)
+key, the merged record table of `_prepare`, `render_sorted`, and the
+`custom_vjp` of `_make_composite` as a `torch.autograd.Function` that spans
+table -> sort -> forward kernel (K1) and, backwards, the backward kernel
+(K2) -> pair-to-gaussian reduction. Differences in the mechanics, not in
+the result:
 
   * The reference sorts every one of the K*N emission slots with its record
     payload. Here the live pairs are compacted first (one host read of their
@@ -14,6 +17,15 @@ the (tile, depth) key, the merged record table of `_prepare` and
   * depth_mode "total" and the two-key fallback (no depth bits left in a
     32-bit key) sort one 64-bit key, (key << 32) | float bits of depth.
     Live pairs have depth > near > 0, where float bits order like floats.
+  * The backward reduces the per-pair gradient rows to gaussians the way
+    the reference's unsort + K-axis sum does, deterministically: each live
+    pair keeps its emission slot (k-major, slot = k * N + gaussian), its
+    rows are stored at that slot of a zeroed (rows, K * N) buffer (a plain
+    indexed store: slots are unique), and the buffer is summed over K. No
+    index_add_: on CUDA it sums with atomics in an order that changes from
+    run to run. The depth row's gradient passes to the view depth as
+    identity in every depth mode (as the reference does for the quantized
+    key depth); the row of ones takes none.
 
 Sorts break ties arbitrarily, as the reference's unstable sorts do.
 """
@@ -23,6 +35,8 @@ from __future__ import annotations
 import torch
 
 from dynamic3dgaussians_tpu_torch.ops.binning import emit_pairs, tile_ranges
+from dynamic3dgaussians_tpu_torch.ops.cuda.raster_bwd import (
+    composite_tiles_bwd, composite_tiles_bwd_torch)
 from dynamic3dgaussians_tpu_torch.ops.cuda.raster_fwd import (
     GEOM_ROWS, composite_tiles, composite_tiles_torch)
 from dynamic3dgaussians_tpu_torch.ops.projection import Projected
@@ -79,16 +93,18 @@ def _key64(hi32: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
 
 
 def prepare_records(tile_key: torch.Tensor, gid: torch.Tensor,
-                    table: torch.Tensor, depth: torch.Tensor, *,
-                    n_chan: int, num_tiles: int, chunk: int, bits_z: int,
-                    depth_mode: str):
+                    table: torch.Tensor, *, n_chan: int, num_tiles: int,
+                    chunk: int, bits_z: int, depth_mode: str):
     """Sort the live pairs and build the merged record table.
 
-    table: (8 + CV, N) per-gaussian record columns, the depth row left to
-    fill; depth: (N,) view depth. Returns (rec_t (8 + CV, NE_pad), starts,
-    counts) with NE_pad = (ceil(n_live / chunk) + 1) * chunk.
+    table: (8 + CV, N) per-gaussian record columns, the depth row holding
+    the view depth. Returns (rec_t (8 + CV, NE_pad), starts, counts, slot)
+    with NE_pad = (ceil(n_live / chunk) + 1) * chunk and slot (n_live,) the
+    emission slot of each sorted pair. Reads the live-pair count from the
+    device (one host synchronisation).
     """
     dev = table.device
+    depth_row = GEOM_ROWS + n_chan
     live_idx = torch.nonzero(tile_key < num_tiles).squeeze(1)
     n_live = int(live_idx.numel())
     ne_pad = (-(-n_live // chunk) + 1) * chunk
@@ -96,10 +112,10 @@ def prepare_records(tile_key: torch.Tensor, gid: torch.Tensor,
                         device=dev)
     if n_live == 0:
         zeros = torch.zeros((num_tiles,), dtype=torch.int32, device=dev)
-        return rec_t, zeros, zeros.clone()
+        return rec_t, zeros, zeros.clone(), live_idx
     lt = tile_key[live_idx]
     lg = gid[live_idx].long()
-    ld = depth[lg]
+    ld = table[depth_row, lg]
     if bits_z > 0:
         dmin, inv_w = affine_depth_range(torch.ones_like(lt, dtype=torch.bool),
                                          ld)
@@ -118,13 +134,45 @@ def prepare_records(tile_key: torch.Tensor, gid: torch.Tensor,
         sd = ld[perm]
     starts, counts = tile_ranges(lt[perm].contiguous(), num_tiles)
     rec_t[:, :n_live] = table[:, lg[perm]]
-    rec_t[GEOM_ROWS + n_chan, :n_live] = sd
-    return rec_t, starts.contiguous(), counts.contiguous()
+    rec_t[depth_row, :n_live] = sd
+    return rec_t, starts.contiguous(), counts.contiguous(), live_idx[perm]
 
 
 def _untile(x, grid_h, grid_w, th, tw, h, w, c):
     img = x.reshape(grid_h, grid_w, th, tw, c).permute(0, 2, 1, 3, 4)
     return img.reshape(grid_h * th, grid_w * tw, c)[:h, :w]
+
+
+def record_columns(proj: Projected, colors: torch.Tensor,
+                   opacity: torch.Tensor) -> torch.Tensor:
+    """(8 + CV, N) per-gaussian record columns: x, y, conic a, b, c (scaled
+    by log2 e: the kernels work in base-2 log space), opacity, 0, 0, then
+    the channels, the view depth, ones and zero rows up to CV % 8 == 0.
+
+    Built with differentiable ops, so autograd chains the log2 e scale of
+    the conic rows, as the reference does outside its custom_vjp.
+    """
+    n = opacity.shape[0]
+    log2e = torch.tensor(LOG2E, dtype=torch.float32, device=opacity.device)
+    zero = torch.zeros((n,), dtype=torch.float32, device=opacity.device)
+    n_chan = colors.shape[-1]
+    cv_pad = -(-(n_chan + 2) // 8) * 8
+    rows = [proj.x2d, proj.y2d, proj.conic_a * log2e, proj.conic_b * log2e,
+            proj.conic_c * log2e, opacity, zero, zero, *colors.T,
+            proj.depth, torch.ones_like(zero)]
+    rows += [zero] * (cv_pad - n_chan - 2)
+    return torch.stack(rows)
+
+
+def emit(h: int, w: int, proj: Projected, opacity: torch.Tensor, *,
+         tile_h: int, tile_w: int, max_tiles_per_gaussian: int,
+         exact_cull: bool, enum_cap: int):
+    """(tile_key, gid, n_dropped_rect) of the K-slot pair emission."""
+    grid_h, grid_w = -(-h // tile_h), -(-w // tile_w)
+    k_cap = max_tiles_per_gaussian
+    cap = (enum_cap or max(16, 2 * k_cap)) if exact_cull else 0
+    return emit_pairs(proj, tile_h, tile_w, grid_h, grid_w, k_cap,
+                      opacity=opacity if exact_cull else None, enum_cap=cap)
 
 
 def sorted_records(h: int, w: int, proj: Projected, colors: torch.Tensor,
@@ -133,7 +181,7 @@ def sorted_records(h: int, w: int, proj: Projected, colors: torch.Tensor,
                    max_tiles_per_gaussian: int = 8, fused_key: bool = True,
                    depth_mode: str = "quantized", exact_cull: bool = True,
                    enum_cap: int = 0):
-    """Emission, sort and merged record table: the kernel's inputs.
+    """Emission, sort and merged record table: the kernels' inputs.
 
     colors (N, C) linear channels, opacity (N,) activated and zeroed for
     invalid gaussians. Returns (rec_t, starts, counts, n_dropped_rect).
@@ -141,37 +189,61 @@ def sorted_records(h: int, w: int, proj: Projected, colors: torch.Tensor,
     if depth_mode not in DEPTH_MODES:
         raise ValueError(f"depth_mode must be one of {DEPTH_MODES}, got "
                          f"{depth_mode!r}")
-    grid_h, grid_w = -(-h // tile_h), -(-w // tile_w)
-    num_tiles = grid_h * grid_w
-    n_chan = colors.shape[-1]
-    k_cap = max_tiles_per_gaussian
-
-    cap = (enum_cap or max(16, 2 * k_cap)) if exact_cull else 0
-    tile_key, gid, n_dropped_rect = emit_pairs(
-        proj, tile_h, tile_w, grid_h, grid_w, k_cap,
-        opacity=opacity if exact_cull else None, enum_cap=cap)
-
-    # Conic rows are pre-scaled by log2(e): the kernel works in base-2 log
-    # space (exp2/log2).
-    log2e = torch.tensor(LOG2E, dtype=torch.float32, device=opacity.device)
-    cv = n_chan + 2
-    cv_pad = -(-cv // 8) * 8
-    n = opacity.shape[0]
-    table = torch.zeros((GEOM_ROWS + cv_pad, n), dtype=torch.float32,
-                        device=opacity.device)
-    table[0], table[1] = proj.x2d, proj.y2d
-    table[2] = proj.conic_a * log2e
-    table[3] = proj.conic_b * log2e
-    table[4] = proj.conic_c * log2e
-    table[5] = opacity
-    table[GEOM_ROWS:GEOM_ROWS + n_chan] = colors.T
-    table[GEOM_ROWS + n_chan + 1] = 1.0        # depth row is filled per pair
-
+    num_tiles = -(-h // tile_h) * -(-w // tile_w)
+    tile_key, gid, n_dropped_rect = emit(
+        h, w, proj, opacity, tile_h=tile_h, tile_w=tile_w,
+        max_tiles_per_gaussian=max_tiles_per_gaussian,
+        exact_cull=exact_cull, enum_cap=enum_cap)
+    table = record_columns(proj, colors, opacity).detach()
     bits_z = depth_key_bits(num_tiles) if fused_key else 0
-    rec_t, starts, counts = prepare_records(
-        tile_key, gid, table, proj.depth, n_chan=n_chan, num_tiles=num_tiles,
+    rec_t, starts, counts, _ = prepare_records(
+        tile_key, gid, table, n_chan=colors.shape[-1], num_tiles=num_tiles,
         chunk=chunk, bits_z=bits_z, depth_mode=depth_mode)
     return rec_t, starts, counts, n_dropped_rect
+
+
+class _SortComposite(torch.autograd.Function):
+    """table -> sort -> K1 forward; K2 -> pair-to-gaussian sum backward.
+
+    forward(table (8 + CV, N), tile_key (K*N,), gid (K*N,), spec) returns
+    the raw accumulators (T, P, CV). spec = (n_chan, num_tiles, grid_w,
+    tile_h, tile_w, chunk, bits_z, depth_mode, use_kernel).
+    """
+
+    @staticmethod
+    def forward(ctx, table, tile_key, gid, spec):
+        (n_chan, num_tiles, grid_w, tile_h, tile_w, chunk, bits_z,
+         depth_mode, use_kernel) = spec
+        rec_t, starts, counts, slot = prepare_records(
+            tile_key, gid, table.detach(), n_chan=n_chan,
+            num_tiles=num_tiles, chunk=chunk, bits_z=bits_z,
+            depth_mode=depth_mode)
+        composite = composite_tiles if use_kernel else composite_tiles_torch
+        raw, log_t, n_active = composite(
+            rec_t, starts, counts, num_tiles=num_tiles, grid_w=grid_w,
+            tile_h=tile_h, tile_w=tile_w, chunk=chunk)
+        ctx.save_for_backward(rec_t, starts, counts, log_t, n_active, slot)
+        ctx.spec = spec
+        ctx.n_slots = tile_key.shape[0]
+        ctx.n_gauss = table.shape[1]
+        return raw
+
+    @staticmethod
+    def backward(ctx, d_raw):
+        rec_t, starts, counts, log_t, n_active, slot = ctx.saved_tensors
+        (n_chan, num_tiles, grid_w, tile_h, tile_w, chunk, _, _,
+         use_kernel) = ctx.spec
+        bwd = composite_tiles_bwd if use_kernel else composite_tiles_bwd_torch
+        d_out = bwd(rec_t, starts, counts, n_active.reshape(-1), log_t,
+                    d_raw.contiguous(), num_tiles=num_tiles, grid_w=grid_w,
+                    tile_h=tile_h, tile_w=tile_w, chunk=chunk)
+        n_rows = rec_t.shape[0]
+        per_slot = torch.zeros((n_rows, ctx.n_slots), dtype=torch.float32,
+                               device=rec_t.device)
+        per_slot[:, slot] = d_out[:, :slot.shape[0]]
+        d_table = per_slot.reshape(n_rows, -1, ctx.n_gauss).sum(1)
+        d_table[GEOM_ROWS + n_chan + 1:] = 0.0     # ones and pad rows
+        return d_table, None, None, None
 
 
 def render_sorted(h: int, w: int, proj: Projected, colors: torch.Tensor,
@@ -180,25 +252,31 @@ def render_sorted(h: int, w: int, proj: Projected, colors: torch.Tensor,
                   max_tiles_per_gaussian: int = 8, fused_key: bool = True,
                   depth_mode: str = "quantized", exact_cull: bool = True,
                   enum_cap: int = 0, use_kernel: bool = True):
-    """Sorted-pair render (inference).
+    """Differentiable sorted-pair render.
 
     colors (N, C) linear channels, opacity (N,) activated and zeroed for
     invalid gaussians, bg (C,) composited as bg * (1 - alpha). use_kernel
-    picks the CUDA kernel (`composite_tiles`) or its plain version.
+    picks the CUDA kernels (`composite_tiles`, `composite_tiles_bwd`) or
+    their plain versions. Gradients reach proj's x2d, y2d, conic and depth,
+    colors and opacity.
 
     Returns (channels (H, W, C), depth (H, W), alpha (H, W), n_dropped_rect).
     """
+    if depth_mode not in DEPTH_MODES:
+        raise ValueError(f"depth_mode must be one of {DEPTH_MODES}, got "
+                         f"{depth_mode!r}")
     grid_h, grid_w = -(-h // tile_h), -(-w // tile_w)
+    num_tiles = grid_h * grid_w
     n_chan = colors.shape[-1]
-    rec_t, starts, counts, n_dropped_rect = sorted_records(
-        h, w, proj, colors, opacity, tile_h=tile_h, tile_w=tile_w,
-        chunk=chunk, max_tiles_per_gaussian=max_tiles_per_gaussian,
-        fused_key=fused_key, depth_mode=depth_mode, exact_cull=exact_cull,
-        enum_cap=enum_cap)
-    composite = composite_tiles if use_kernel else composite_tiles_torch
-    raw, _, _ = composite(rec_t, starts, counts, num_tiles=grid_h * grid_w,
-                          grid_w=grid_w, tile_h=tile_h, tile_w=tile_w,
-                          chunk=chunk)
+    tile_key, gid, n_dropped_rect = emit(
+        h, w, proj, opacity.detach(), tile_h=tile_h, tile_w=tile_w,
+        max_tiles_per_gaussian=max_tiles_per_gaussian,
+        exact_cull=exact_cull, enum_cap=enum_cap)
+    table = record_columns(proj, colors, opacity)
+    bits_z = depth_key_bits(num_tiles) if fused_key else 0
+    spec = (n_chan, num_tiles, grid_w, tile_h, tile_w, chunk, bits_z,
+            depth_mode, use_kernel)
+    raw = _SortComposite.apply(table, tile_key, gid, spec)
 
     alpha_t = raw[..., n_chan + 1]
     depth_t = raw[..., n_chan]

@@ -1,0 +1,407 @@
+"""The per-timestep training driver, first timestep.
+
+Port of `dynamic3dgaussians_tpu/train/trainer.py` for t = 0:
+
+  train(dataset, cfg, pt_cld, w2c_stack)
+    init_params -> capacity-padded tables (models.gaussians)
+    for i in iters: train_step (render RGB + seg in one pass through the
+      kernels' autograd Function, losses, Adam), densify at its cadence,
+      K escalation at report steps
+    compact -> kNN graph -> foreground-first RCM row reorder -> params.npz
+
+The same seed gives the same camera stream as the reference (numpy
+`RandomState(cfg.seed)`, picks without replacement) and the same schedule of
+host actions. Per step the host reads one number from the device, the
+live-pair count of the sort; the rect-drop count is summed on the device
+and read only at report steps, and the metrics stay tensors until a
+callback reads them.
+
+Not ported yet: the t > 0 step (physics losses, neighbour lookup, forward
+extrapolation), so `num_timesteps > 1` raises; checkpoints
+(`checkpoint_dir`) raise too. The reference's on-device multi-step window
+(`steps_per_call`) only amortises TPU dispatch; here the same steps run one
+at a time.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from dynamic3dgaussians_tpu_torch.device import DeviceLike, resolve_device
+from dynamic3dgaussians_tpu_torch.models import gaussians as G
+from dynamic3dgaussians_tpu_torch.ops import quat
+from dynamic3dgaussians_tpu_torch.ops.knn import knn
+from dynamic3dgaussians_tpu_torch.ops.neighbor import (build_edge_reduction,
+                                                       locality_order)
+from dynamic3dgaussians_tpu_torch.ops.rasterize import RasterConfig, render
+from dynamic3dgaussians_tpu_torch.train import densify as densify_mod
+from dynamic3dgaussians_tpu_torch.train import losses as L
+from dynamic3dgaussians_tpu_torch.train import optim
+from dynamic3dgaussians_tpu_torch.train.config import TrainConfig
+
+MAX_TILES_PER_GAUSSIAN = 64    # K escalation stops here
+
+
+def raster_config(cfg: TrainConfig) -> RasterConfig:
+    r = cfg.raster
+    return RasterConfig(tile_h=r.tile_h, tile_w=r.tile_w, chunk=r.chunk,
+                        max_tiles_per_gaussian=r.max_tiles_per_gaussian,
+                        exact_cull=r.exact_cull)
+
+
+def compute_loss(params: Dict, probe: torch.Tensor, batch: Dict,
+                 variables: Dict, *, is_initial: bool, cfg: TrainConfig,
+                 rcfg: RasterConfig):
+    """Loss over one camera datapoint.
+
+    batch: {camera, im (H, W, 3), seg (H, W, 3), cam_id (int), optional
+    gt_depth (H, W) and gt_feature (h, w, F)}. Returns (loss, aux) with the
+    radii for the densification statistics.
+    """
+    if not is_initial:
+        raise NotImplementedError(
+            "the t > 0 step (physics losses, neighbour lookup) is slice 3 "
+            "of the port and not ported yet")
+    alive = variables["alive"]
+    act = G.activated(params, alive)
+    extra = params["seg_colors"]
+    has_feat = "gt_feature" in batch and "semantic_feature" in params
+    if has_feat:
+        extra = torch.cat([extra, params["semantic_feature"]], dim=-1)
+    cam = batch["camera"]
+    out = render(cam, act["means3d"], act["colors"], act["opacity"],
+                 act["scales"], act["rotations"], extra_channels=extra,
+                 mean2d_probe_ndc=probe, config=rcfg,
+                 method=cfg.raster.render_method(), device=cam.device)
+
+    cam_id = int(batch["cam_id"])
+    im = L.apply_cam_correction(out.rgb, params["cam_m"][cam_id],
+                                params["cam_c"][cam_id])
+    losses = {"im": L.image_loss(im, batch["im"]),
+              "seg": L.image_loss(out.extra[..., :3], batch["seg"])}
+    if "gt_depth" in batch:
+        losses["depth"] = L.depth_pearson_loss(out.depth, batch["gt_depth"])
+    if has_feat:
+        # bilinear resize of the rendered feature map to the GT's size
+        feat = out.extra[..., 3:]
+        gt_feat = batch["gt_feature"]
+        if tuple(feat.shape[:2]) != tuple(gt_feat.shape[:2]):
+            feat = F.interpolate(feat.permute(2, 0, 1)[None],
+                                 size=tuple(gt_feat.shape[:2]),
+                                 mode="bilinear", align_corners=False,
+                                 antialias=True)[0].permute(1, 2, 0)
+        losses["feature"] = L.image_loss(feat, gt_feat)
+
+    w = cfg.loss_weights
+    total = sum(float(w.get(k, 0.0)) * v for k, v in losses.items())
+    aux = {"losses": losses, "radii": out.radii,
+           "psnr": L.psnr(torch.clamp(im, 0, 1), batch["im"]),
+           "n_dropped": out.n_dropped_rect,
+           "n_dropped_rect": out.n_dropped_rect}
+    return total, aux
+
+
+def make_train_step(cfg: TrainConfig, rcfg: RasterConfig):
+    """The train step: gradients of the loss w.r.t. the parameters and the
+    mean2d probe, the dead-row gradient mask, Adam, the densification
+    statistics.
+
+    train_step(params, opt_state, variables, batch, lrs, is_initial) ->
+    (params, opt_state, variables, metrics); `batch` is one datapoint or a
+    list of them (cams_per_step > 1: mean loss, largest radii).
+    """
+
+    def batched_loss(params, probe, batch, variables, is_initial):
+        kw = dict(is_initial=is_initial, cfg=cfg, rcfg=rcfg)
+        if isinstance(batch, dict):
+            return compute_loss(params, probe, batch, variables, **kw)
+        parts = [compute_loss(params, probe, b, variables, **kw)
+                 for b in batch]
+        auxs = [a for _, a in parts]
+        aux = {"losses": {k: torch.stack([a["losses"][k] for a in auxs])
+                          .mean() for k in auxs[0]["losses"]},
+               "radii": torch.stack([a["radii"] for a in auxs]).amax(0),
+               "psnr": torch.stack([a["psnr"] for a in auxs]).mean(),
+               "n_dropped": sum(a["n_dropped"] for a in auxs),
+               "n_dropped_rect": sum(a["n_dropped_rect"] for a in auxs)}
+        return torch.stack([p for p, _ in parts]).mean(), aux
+
+    def train_step(params, opt_state, variables, batch, lrs, is_initial):
+        keys = list(params)
+        leaves = {k: params[k].detach().requires_grad_(True) for k in keys}
+        alive = variables["alive"]
+        probe = torch.zeros((alive.shape[0], 2), dtype=torch.float32,
+                            device=alive.device, requires_grad=True)
+        loss, aux = batched_loss(leaves, probe, batch, variables, is_initial)
+        grads = torch.autograd.grad(loss, [leaves[k] for k in keys] + [probe],
+                                    allow_unused=True)
+        with torch.no_grad():
+            gp = {}
+            for k, g in zip(keys, grads[:-1]):
+                g = torch.zeros_like(params[k]) if g is None else g
+                if k not in G.CAMERA_KEYS:
+                    # dead capacity slots must not drift (their gradients
+                    # can be NaN, e.g. normalising a zero quaternion)
+                    m = alive.reshape((-1,) + (1,) * (g.dim() - 1))
+                    g = torch.where(m, g, torch.zeros_like(g))
+                gp[k] = g
+            gprobe = grads[-1] if grads[-1] is not None else \
+                torch.zeros_like(probe)
+            new_params, new_opt = optim.step(
+                {k: params[k].detach() for k in keys}, gp, opt_state, lrs)
+            new_vars = densify_mod.accumulate_stats(variables, gprobe,
+                                                    aux["radii"])
+            metrics = {"loss": loss.detach(), "psnr": aux["psnr"].detach(),
+                       "n_dropped": aux["n_dropped"],
+                       "n_dropped_rect": aux["n_dropped_rect"],
+                       **{f"loss_{k}": v.detach()
+                          for k, v in aux["losses"].items()}}
+        return new_params, new_opt, new_vars, metrics
+
+    return train_step
+
+
+def densify_with_growth(params, variables, opt_state, i: int,
+                        cfg: TrainConfig, generator: torch.Generator):
+    """One densify pass with unbounded growth: if the pass ran out of free
+    slots, grow the tables and redo the pass on the pre-densify state, so
+    no row is ever dropped (the redo draws its split noise afresh, as the
+    reference's redo draws a new shape from the same key). Returns
+    densify's 4-tuple."""
+    new_state = densify_mod.densify(params, variables, opt_state, i,
+                                    generator=generator)
+    dropped = int(new_state[3].n_dropped_capacity)
+    if dropped > 0 and cfg.grow_capacity:
+        cap = variables["alive"].shape[0]
+        needed = int(new_state[3].n_alive) + dropped
+        new_cap = G.round_capacity(max(2 * cap, needed))
+        if cfg.max_capacity:
+            new_cap = min(new_cap, G.round_capacity(cfg.max_capacity))
+        if new_cap > cap:
+            params, variables, opt_state = G.grow_capacity(
+                params, variables, new_cap, opt_state)
+            new_state = densify_mod.densify(params, variables, opt_state, i,
+                                            generator=generator)
+    return new_state
+
+
+def initialize_post_first_timestep(params: Dict, variables: Dict,
+                                   cfg: TrainConfig, opt_state=None,
+                                   timings: Optional[Dict] = None):
+    """Build the foreground kNN graph and freeze the t = 0 state.
+
+    kNN over the alive foreground rows (indices are table rows, -1 for the
+    others). With `opt_state` the table is also reordered once: foreground
+    rows first, in reverse Cuthill-McKee order of their graph, and the edge
+    plan covers that prefix only. `timings`, when given, receives the
+    seconds of the kNN ("knn_s") and of the reorder ("rcm_s").
+
+    Returns (params, variables, opt_state).
+    """
+    if cfg.knn_method != "exact":
+        raise NotImplementedError(f"knn_method {cfg.knn_method!r} is not "
+                                  f"ported (only 'exact')")
+    if cfg.neighbor_window:
+        raise NotImplementedError("neighbor_window (the TPU windowed fetch) "
+                                  "is not ported")
+    timings = {} if timings is None else timings
+    dev = variables["alive"].device
+    alive = variables["alive"]
+    is_fg = (params["seg_colors"][:, 0] > 0.5) & alive
+    t0 = time.perf_counter()
+    sq_dist, idx = knn(params["means3D"], cfg.num_knn, mask=is_fg)
+    sq_dist = torch.where(idx >= 0, sq_dist, torch.zeros_like(sq_dist))
+    idx_h = idx.cpu().numpy()
+    timings["knn_s"] = time.perf_counter() - t0
+
+    new_vars = dict(variables)
+    n_dst = None
+    t0 = time.perf_counter()
+    if opt_state is not None:
+        cap = int(alive.shape[0])
+        fg_rows = np.flatnonzero(is_fg.cpu().numpy())
+        if fg_rows.size:
+            perm = locality_order(idx_h, fg_rows, cap)
+            inv = np.empty(cap, np.int64)
+            inv[perm] = np.arange(cap)
+            porder = torch.as_tensor(perm, device=dev)
+            take = lambda v: v[porder]            # noqa: E731
+            params = G.rows_of(params, take)
+            for k in G.STAT_KEYS:
+                new_vars[k] = new_vars[k][porder]
+            opt_state = optim.AdamState(mu=G.rows_of(opt_state.mu, take),
+                                        nu=G.rows_of(opt_state.nu, take),
+                                        step=opt_state.step)
+            idx_h = np.where(idx_h[perm] >= 0,
+                             inv[np.maximum(idx_h[perm], 0)],
+                             -1).astype(np.int32)
+            idx = torch.as_tensor(idx_h, device=dev)
+            sq_dist = sq_dist[porder]
+            n_dst = int(fg_rows.size)  # the fg prefix carries every edge
+    plan = build_edge_reduction(idx_h, n_dst=n_dst, device=dev)
+    timings["rcm_s"] = time.perf_counter() - t0
+
+    new_vars["neighbor_indices"] = idx
+    new_vars["edge_rank"] = plan.rank
+    new_vars["edge_row_ptr"] = plan.row_ptr
+    new_vars["neighbor_weight"] = torch.exp(-cfg.knn_weight_beta * sq_dist)
+    new_vars["neighbor_dist"] = torch.sqrt(sq_dist)
+    rot = quat.normalize(params["unnorm_rotations"])
+    new_vars["init_bg_pts"] = params["means3D"]
+    new_vars["init_bg_rot"] = rot
+    new_vars["prev_pts"] = params["means3D"]
+    new_vars["prev_rot"] = rot
+    return params, new_vars, opt_state
+
+
+def params_to_cpu(params: Dict, variables: Dict, is_initial: bool) -> Dict:
+    """Strip the capacity padding and copy to host numpy."""
+    n = int(G.num_alive(variables))
+    keys = params.keys() if is_initial else ("means3D", "rgb_colors",
+                                             "unnorm_rotations")
+    out = {}
+    for k in keys:
+        v = params[k].detach().cpu().numpy()
+        out[k] = v if k in G.CAMERA_KEYS else v[:n]
+    return out
+
+
+def train(dataset, cfg: TrainConfig, pt_cld: np.ndarray,
+          w2c_stack: np.ndarray, callbacks: Optional[Dict] = None,
+          checkpoint_dir: Optional[str] = None, checkpoint_every: int = 0,
+          resume: bool = False, device: DeviceLike = None):
+    """Optimise the first timestep of a sequence.
+
+    dataset: dataset[t] = list of camera datapoints (dicts as in
+    compute_loss, on `device`), or a callable t -> that list. pt_cld (N, 7)
+    initial cloud [xyz, rgb, seg]; w2c_stack (C, 4, 4) extrinsics for the
+    scene radius. Callbacks (all optional): on_step(t, i, metrics) at report
+    steps, on_iter(t, i, k) after every step and its host actions (k: the
+    emission slots per gaussian the step rendered with), on_densify(t, i,
+    stats), on_grow_tiles(t, i, new_k), on_graph(t, timings) after the kNN
+    graph, on_timestep(t, params, variables). Runs on `device` (default
+    `cuda`).
+
+    Returns (output_params, params, variables): the host checkpoints per
+    timestep and the final device state.
+    """
+    if cfg.num_timesteps > 1:
+        raise NotImplementedError(
+            "num_timesteps > 1 needs the t > 0 step (physics losses, "
+            "neighbour lookup, forward extrapolation): slice 3 of the port, "
+            "not ported yet")
+    if checkpoint_dir:
+        raise NotImplementedError("training checkpoints (checkpoint_dir, "
+                                  "resume) are not ported yet")
+    del checkpoint_every, resume
+    dev = resolve_device(device)
+    callbacks = callbacks or {}
+    rng = np.random.RandomState(cfg.seed)
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+
+    params, variables = G.init_params(
+        pt_cld, w2c_stack, capacity=cfg.capacity or
+        G.round_capacity(pt_cld.shape[0] * 4),
+        semantic_dim=cfg.semantic_dim, seed=cfg.seed, generator=gen,
+        device=dev)
+    opt_state = optim.init(params)
+    rcfg = raster_config(cfg)
+    train_step = make_train_step(cfg, rcfg)
+
+    def lr_tree(frozen: bool):
+        lrs = {}
+        for k in params:
+            base = cfg.lrs.get(k, 0.0)
+            if k == "means3D":
+                base = base * float(variables["scene_radius"])
+            if frozen and k in cfg.freeze_after_t0:
+                base = 0.0
+            lrs[k] = torch.tensor(base, dtype=torch.float32, device=dev)
+        return lrs
+
+    get_t = dataset if callable(dataset) else dataset.__getitem__
+    output_params = []
+    for t in range(cfg.num_timesteps):
+        is_initial = t == 0
+        data_t = get_t(t)
+        num_iters = (cfg.iters_first_timestep if is_initial
+                     else cfg.iters_per_timestep)
+        lrs = lr_tree(frozen=not is_initial)
+        todo: List[int] = []
+        k_cams = max(1, min(cfg.cams_per_step, len(data_t)))
+        # summed on the device, read at report steps only
+        rect_drop_accum = torch.zeros((), dtype=torch.int32, device=dev)
+
+        def pick_cams():
+            """k_cams indices from the without-replacement permutation
+            stream (the reference's get_batch)."""
+            nonlocal todo
+            row = []
+            for _ in range(k_cams):
+                if not todo:
+                    todo = list(rng.permutation(len(data_t)))
+                row.append(int(todo.pop()))
+            return row
+
+        for i in range(num_iters):
+            k_step = cfg.raster.max_tiles_per_gaussian
+            picks = [data_t[c] for c in pick_cams()]
+            batch = picks[0] if k_cams == 1 else picks
+            params, opt_state, variables, metrics = train_step(
+                params, opt_state, variables, batch, lrs, is_initial)
+            if cfg.grow_tiles:
+                rect_drop_accum = rect_drop_accum + metrics["n_dropped_rect"]
+            if is_initial and i <= cfg.densify_end:
+                if i >= cfg.densify_start and i % cfg.densify_every == 0:
+                    params, variables, opt_state, dstats = \
+                        densify_with_growth(params, variables, opt_state, i,
+                                            cfg, gen)
+                    if "on_densify" in callbacks:
+                        callbacks["on_densify"](t, i, dstats)
+                if i > 0 and i % cfg.opacity_reset_every == 0:
+                    params, opt_state = densify_mod.reset_opacity(params,
+                                                                  opt_state)
+            if i % cfg.report_every == 0:
+                # K escalation: the original never truncates a gaussian's
+                # tile rect; if the K emission slots overflowed on any step
+                # since the last report, double K
+                if (cfg.grow_tiles and int(rect_drop_accum) > 0
+                        and cfg.raster.max_tiles_per_gaussian
+                        < MAX_TILES_PER_GAUSSIAN):
+                    new_k = min(cfg.raster.max_tiles_per_gaussian * 2,
+                                MAX_TILES_PER_GAUSSIAN)
+                    new_pairs = (min(new_k, cfg.pairs_budget_cap)
+                                 if cfg.pairs_budget_cap else new_k)
+                    new_pairs = max(cfg.raster.pairs_per_gaussian, new_pairs)
+                    cfg = dataclasses.replace(cfg, raster=dataclasses.replace(
+                        cfg.raster, max_tiles_per_gaussian=new_k,
+                        pairs_per_gaussian=new_pairs))
+                    rcfg = raster_config(cfg)
+                    train_step = make_train_step(cfg, rcfg)
+                    if "on_grow_tiles" in callbacks:
+                        callbacks["on_grow_tiles"](t, i, new_k)
+                rect_drop_accum = torch.zeros_like(rect_drop_accum)
+                if "on_step" in callbacks:
+                    callbacks["on_step"](t, i, metrics)
+            if "on_iter" in callbacks:
+                callbacks["on_iter"](t, i, k_step)
+
+        if is_initial:
+            # alive rows to the front, then the fixed neighbour graph
+            params, variables, opt_state, _ = G.compact_with_optimizer(
+                params, variables, opt_state)
+            timings: Dict[str, float] = {}
+            params, variables, opt_state = initialize_post_first_timestep(
+                params, variables, cfg, opt_state, timings=timings)
+            if "on_graph" in callbacks:
+                callbacks["on_graph"](t, timings)
+        output_params.append(params_to_cpu(params, variables, is_initial))
+        if "on_timestep" in callbacks:
+            callbacks["on_timestep"](t, params, variables)
+    return output_params, params, variables

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Where one frame of the port's main path spends its time, on one GPU.
+"""Where one frame and one train step of the port's main paths spend their
+time, on one GPU.
 
-    python3 profile_frame.py [--frames 3] [--reps 5]
+    python3 profile_frame.py [--frames 3] [--steps 3] [--reps 5]
+    python3 profile_frame.py --train-witness
 
-Renders the bench view of `chip_smoke.py` (200k gaussians, 640x360, the
-`render_frame` inputs: RGB + 3 seg channels) and prints JSON lines:
+Frame: renders the bench view of `chip_smoke.py` (200k gaussians, 640x360,
+the `render_frame` inputs: RGB + 3 seg channels) and prints JSON lines:
 
   * `stages`: host-clock milliseconds of each stage of `render_frame`,
     each ended by `torch.cuda.synchronize()` (median over --reps): upload
@@ -18,6 +20,25 @@ Renders the bench view of `chip_smoke.py` (200k gaussians, 640x360, the
     synchronisations per frame, and the kernels that take most device
     time.
 
+Train step: the first-timestep step of `cli train` on the bench scene as
+`chip_smoke.py` trains it (200k gaussians initialised from a perturbed
+cloud, an 800k-row table, 640x360 cameras at orbit radius 6), at K = 8
+emission slots and at K = 64, where the trainer's K escalation ends:
+
+  * `train_stages`: loss (render forward and losses), backward (autograd
+    through K2 and the projection), update (dead-row mask, Adam, the
+    densification statistics) and step (`make_train_step`'s whole step),
+    host clock, synchronised, median over --reps;
+  * `train_profile`: the `torch.profiler` summary of --steps steps.
+
+With --train-witness it runs only `chip_smoke.py`'s `cli train` on the
+bench layout, at orbit radius 4 (the synthetic layout's default) and 6
+(the smoke's), each through the kernels (`raster.method` "pallas") and
+through their plain versions ("torch"), and prints one `train_witness`
+line per run: the loss per report and the PSNR of every view before and
+after, so that the kernel path's training is held against the plain
+path's at full width.
+
 Needs a CUDA device; imports nothing of JAX.
 """
 
@@ -27,6 +48,7 @@ import argparse
 import json
 import statistics
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -92,15 +114,16 @@ def stage_times(params, cam, dev):
     return times
 
 
-def profile_frames(params, cam, dev, n_frames):
+def profile_calls(fn, n_calls):
+    """torch.profiler summary of n_calls calls of fn, per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(n_frames):
-            to_uint8(render_frame(params, cam, device=dev).rgb)
+        for _ in range(n_calls):
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.events()
@@ -119,28 +142,97 @@ def profile_frames(params, cam, dev, n_frames):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     host = [e.name for e in events if e.device_type != DeviceType.CUDA]
     return dict(
-        frames=n_frames, wall_ms_per_frame=wall_ms / n_frames,
+        calls=n_calls, wall_ms_per_call=wall_ms / n_calls,
         device_events=len(kernels),
-        device_busy_ms_per_frame=busy_us / 1e3 / n_frames,
-        device_window_ms_per_frame=window_us / 1e3 / n_frames,
+        device_busy_ms_per_call=busy_us / 1e3 / n_calls,
+        device_window_ms_per_call=window_us / 1e3 / n_calls,
         device_idle_share=(1.0 - busy_us / window_us) if window_us else None,
-        kernels_per_frame=sum(host.count(n) for n in LAUNCH_CALLS)
-        / n_frames,
-        syncs_per_frame=sum(host.count(n) for n in SYNC_CALLS) / n_frames,
-        top_kernels_ms_per_frame=[
-            [name[:90], t / 1e3 / n_frames] for name, t in top])
+        kernels_per_call=sum(host.count(n) for n in LAUNCH_CALLS) / n_calls,
+        syncs_per_call=sum(host.count(n) for n in SYNC_CALLS) / n_calls,
+        top_kernels_ms_per_call=[
+            [name[:90], t / 1e3 / n_calls] for name, t in top])
+
+
+def train_setup(dev):
+    """Bench-scene training state and one ground-truth camera datapoint."""
+    from dynamic3dgaussians_tpu_torch.data import synthetic
+    from dynamic3dgaussians_tpu_torch.models import gaussians as G
+    from dynamic3dgaussians_tpu_torch.train import optim
+    scene = cs.bench_scene()
+    seg = scene["seg_colors"][:, 0]
+    gt = dict(means=scene["means"], colors=scene["colors"],
+              opac=scene["opac"], scales=scene["scales"],
+              quats=scene["quats"], seg=seg, n_fg=int(seg.sum()))
+    data, w2c, _ = synthetic.make_dataset(
+        gt, 1, num_cams=cs.TRAIN_CAMS, w=cs.W, h=cs.H, f=cs.F, radius=cs.TRAIN_RADIUS,
+        device=dev)
+    params, variables = G.init_params(synthetic.init_point_cloud(gt), w2c,
+                                      device=dev)
+    return params, variables, optim.init(params), data[0][0]
+
+
+def train_stage_times(state, batch, k_slots, dev):
+    from dynamic3dgaussians_tpu_torch.models import gaussians as G
+    from dynamic3dgaussians_tpu_torch.train import densify, optim
+    from dynamic3dgaussians_tpu_torch.train import trainer as T
+    from dynamic3dgaussians_tpu_torch.train.config import (RasterSettings,
+                                                           TrainConfig)
+    params, variables, opt_state = state
+    cfg = TrainConfig(num_timesteps=1, raster=RasterSettings(
+        max_tiles_per_gaussian=k_slots))
+    rcfg = T.raster_config(cfg)
+    lrs = {k: torch.tensor(cfg.lrs.get(k, 0.0), device=dev) for k in params}
+    keys = list(params)
+    times = {}
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    probe = torch.zeros((variables["alive"].shape[0], 2), device=dev,
+                        requires_grad=True)
+    (loss, aux), times["loss"] = timed(lambda: T.compute_loss(
+        leaves, probe, batch, variables, is_initial=True, cfg=cfg,
+        rcfg=rcfg))
+    grads, times["backward"] = timed(lambda: torch.autograd.grad(
+        loss, [leaves[k] for k in keys] + [probe], allow_unused=True))
+
+    def update():
+        with torch.no_grad():
+            alive = variables["alive"]
+            gp = {k: torch.zeros_like(params[k]) if g is None else (
+                g if k in G.CAMERA_KEYS else torch.where(
+                    alive.reshape((-1,) + (1,) * (g.dim() - 1)), g,
+                    torch.zeros_like(g))) for k, g in zip(keys, grads[:-1])}
+            optim.step(params, gp, opt_state, lrs)
+            densify.accumulate_stats(variables, grads[-1], aux["radii"])
+    _, times["update"] = timed(update)
+    step = T.make_train_step(cfg, rcfg)
+    _, times["step"] = timed(lambda: step(params, opt_state, variables,
+                                          batch, lrs, True))
+    times["n_dropped_rect"] = int(aux["n_dropped_rect"])
+    return times, (lambda: step(params, opt_state, variables, batch, lrs,
+                                True))
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=3)
+    ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--train-witness", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_frame: needs a CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda", torch.cuda.current_device())
     smi = cs.smi_line()
+    if args.train_witness:
+        scene = cs.bench_scene()
+        for radius in (4.0, 6.0):
+            for method in ("pallas", "torch"):
+                with tempfile.TemporaryDirectory() as tmp:
+                    rec = cs.train_bench(scene, dev, tmp, radius=radius,
+                                         method=method)
+                print(json.dumps(dict(phase="train_witness", card=smi,
+                                      **rec)), flush=True)
+        return 0
     params = frame_params(cs.bench_scene())
     w2c = np.eye(4)
     w2c[2, 3] = 6.0
@@ -152,9 +244,25 @@ def main(argv=None) -> int:
     stages["sort_and_table"] = stages["records"] - stages["emit"]
     print(json.dumps(dict(phase="stages", ms=stages, reps=args.reps,
                           card=smi)), flush=True)
-    print(json.dumps(dict(phase="profile", card=smi,
-                          **profile_frames(params, cam, dev, args.frames))),
-          flush=True)
+    print(json.dumps(dict(phase="profile", card=smi, **profile_calls(
+        lambda: to_uint8(render_frame(params, cam, device=dev).rgb),
+        args.frames))), flush=True)
+
+    params_t, variables, opt_state, batch = train_setup(dev)
+    state = (params_t, variables, opt_state)
+    for k_slots in (8, 64):
+        train_stage_times(state, batch, k_slots, dev)       # warm
+        runs = [train_stage_times(state, batch, k_slots, dev)[0]
+                for _ in range(args.reps)]
+        stages = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+        print(json.dumps(dict(phase="train_stages", k_slots=k_slots,
+                              ms=stages, reps=args.reps, card=smi)),
+              flush=True)
+        _, step_fn = train_stage_times(state, batch, k_slots, dev)
+        print(json.dumps(dict(phase="train_profile", k_slots=k_slots,
+                              card=smi, **profile_calls(step_fn,
+                                                        args.steps))),
+              flush=True)
     return 0
 
 

@@ -60,8 +60,13 @@ def test_port_imports_no_jax():
     count, names = out.stdout.split(maxsplit=1)
     names = names.split()
     # every module of the slice was reached
-    for mod in ("ops.cuda.raster_fwd", "ops.sorted_raster", "ops.rasterize",
-                "viz.render", "viz.export", "cli", "convert", "_build"):
+    for mod in ("ops.cuda.raster_fwd", "ops.cuda.raster_bwd",
+                "ops.sorted_raster", "ops.rasterize", "ops.ssim", "ops.knn",
+                "ops.neighbor", "models.gaussians", "train.losses",
+                "train.optim", "train.densify", "train.config",
+                "train.trainer", "data.dataset", "data.synthetic",
+                "utils.logging", "viz.render", "viz.export", "cli",
+                "convert", "_build"):
         assert f"dynamic3dgaussians_tpu_torch.{mod}" in names
     assert int(count) == len(names)
 
@@ -82,7 +87,8 @@ def _tiny():
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "render",
-                                   "render_frame", "orbit_render", "cli"])
+                                   "render_frame", "orbit_render", "cli",
+                                   "cli_train", "train"])
 def test_no_device_without_cuda_raises(monkeypatch, tmp_path, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     params, cam = _tiny()
@@ -97,7 +103,17 @@ def test_no_device_without_cuda_raises(monkeypatch, tmp_path, entry):
             tvr.render_frame(params, cam)
         elif entry == "orbit_render":
             tvr.orbit_render(params, n_frames=1, w=32, h=32)
-        else:
+        elif entry == "cli":
             path = texp.save_params([params], str(tmp_path))
             cli.main(["visualize", "--params", path, "--frames", "1",
                       "--width", "32", "--height", "32"])
+        elif entry == "cli_train":
+            cli.main(["train", "--synthetic", "--timesteps", "1",
+                      "--iters_first", "1", "--output", str(tmp_path)])
+        else:
+            from dynamic3dgaussians_tpu_torch.train.config import TrainConfig
+            from dynamic3dgaussians_tpu_torch.train.trainer import train
+            pt = np.concatenate([params["means3D"], params["rgb_colors"],
+                                 np.ones((8, 1), np.float32)], axis=1)
+            train([[]], TrainConfig(num_timesteps=1), pt,
+                  np.eye(4)[None].repeat(2, 0))

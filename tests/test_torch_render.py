@@ -183,14 +183,32 @@ def test_affine_key_matches(bits_z):
 
 
 def test_render_refuses_gradients():
+    """Under torch.no_grad() a render carries no graph, even from inputs
+    that require grad, so asking it for gradients raises."""
     _, tc, arrays, _ = _scene(n=20)
     means = torch.as_tensor(arrays[0]).requires_grad_(True)
     rest = [torch.as_tensor(a) for a in arrays[1:]]
-    with pytest.raises(NotImplementedError):
-        trast.render(tc, means, *rest, device="cpu")
     with torch.no_grad():
         out = trast.render(tc, means, *rest, device="cpu")
-    assert not out.rgb.requires_grad
+    assert not out.rgb.requires_grad and out.rgb.grad_fn is None
+    with pytest.raises(RuntimeError):
+        torch.autograd.grad(out.rgb.sum(), means)
+
+
+def test_render_gradients_flow_to_inputs():
+    """With gradients on, the render carries a graph back to its inputs;
+    its values are those of the render under no_grad (test_torch_grad.py
+    holds the gradients themselves)."""
+    _, tc, arrays, _ = _scene(n=20)
+    means = torch.as_tensor(arrays[0]).requires_grad_(True)
+    rest = [torch.as_tensor(a) for a in arrays[1:]]
+    with torch.no_grad():
+        out = trast.render(tc, means, *rest, device="cpu")
+    live = trast.render(tc, means, *rest, device="cpu")
+    assert live.rgb.requires_grad
+    torch.testing.assert_close(live.rgb.detach(), out.rgb, atol=0, rtol=0)
+    (g,) = torch.autograd.grad(live.rgb.sum(), means)
+    assert torch.isfinite(g).all() and float(g.abs().max()) > 0
 
 
 @pytest.mark.parametrize("kwargs,exc", [
