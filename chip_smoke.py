@@ -5,12 +5,14 @@
 
 Builds the port's CUDA kernels from `dynamic3dgaussians_tpu_torch/csrc/`,
 holds each kernel against its plain PyTorch version at the shapes the main
-paths give it (K1 forward, K2 backward), holds the kernel path's render
-gradients against the frozen golden fixtures, drives both main paths at
-full width -- `cli visualize` on a 200k-gaussian, 3-timestep checkpoint at
-640x360, and `cli train` for 30 steps of the first timestep of a 200k
-scene seen by 4 cameras at 640x360, timing its steps and the PSNR of
-every view before and after -- and checks that each went through the
+paths give it (K1 forward, K2 backward, K3 the speed-of-light probe at the
+bench shape, one walk and card-wide), holds the kernel path's render
+gradients against the frozen golden fixtures, drives the three main paths
+at full width -- `cli visualize` on a 200k-gaussian, 3-timestep checkpoint
+at 640x360; `cli train` over 3 timesteps of a 200k scene seen by 4 cameras
+at 640x360 (30 steps at t = 0, 10 at each later one), timing its steps and
+the PSNR of every view before and after each timestep; and the probe's
+entry point `tools/bench_sol.py` -- and checks that each went through its
 kernels. Prints one JSON object per phase; the last line is
 `{"ok": true, "device": {...}}`. Any failure propagates and exits non-zero,
 as does a machine without CUDA. Imports nothing of JAX.
@@ -21,7 +23,6 @@ from __future__ import annotations
 import json
 import os
 import re
-import subprocess
 import sys
 import tempfile
 import time
@@ -54,6 +55,23 @@ ROW_ATOL_BWD = 1e-4
 # kernel-path render gradients against the frozen fixtures: the CPU row of
 # tests/fixtures/TOLERANCES.md, |g - fixture| <= rel * max(|fixture|, 1)
 REL_GOLDEN = 1e-2
+# K3 against its plain version. The scalar of each walk (the sum of its two
+# parts): relative error. The same cell pipeline, the scan and the sums over
+# 256 pixels in another order (compute variants); sums of 4096 values per
+# block (dma_only).
+RTOL_K3 = {"compute_only": 1e-5, "stream_compute": 1e-5, "dma_only": 1e-6}
+# Each part on its own, |kernel - plain| <= rtol |plain| + atol. The acc
+# part (~10^2 against a log2T part of ~10^7 at the bench shape) is held
+# relative to its own size; its atol (about 3e-6 of the sum of |acc| terms
+# of a walk of this table, ~300) covers a walk whose acc sum cancels. The
+# value corner of dma_only (a sum of ~2e6 values uniform in [-1, 1]) gets
+# an atol for the same reason. A kernel that drops the acc update or gets
+# w wrong (cum for cum - l, no log2T) moves the acc part by 24 % or more.
+K3_PART_TOL = {
+    "compute_only": {"acc": (1e-5, 1e-3), "log2T": (1e-5, 0.0)},
+    "stream_compute": {"acc": (1e-5, 1e-3), "log2T": (1e-5, 0.0)},
+    "dma_only": {"geometry_corner": (1e-6, 0.0),
+                 "value_corner": (1e-6, 1e-2)}}
 
 W, H, F = 640, 360, 500.0
 N_GAUSS = 200_000
@@ -63,13 +81,6 @@ CHUNK = 128
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
-
-
-def smi_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True).stdout.strip().splitlines()[0]
 
 
 def bench_scene(seed=0, n=N_GAUSS):
@@ -90,33 +101,19 @@ def bench_scene(seed=0, n=N_GAUSS):
 
 def ptxas_summary(report: str):
     """{"raster_fwd_kernel<8>": "0 bytes spill stores, Used 39 registers",
-    ...} from nvcc's -Xptxas -v report."""
+    "sol_compute_kernel<1>": ..., "sol_dma_kernel": ...} from nvcc's
+    -Xptxas -v report."""
     out, name = {}, None
     for ln in report.splitlines():
-        m = re.search(r"(raster_[a-z]+_kernel)ILi(\d+)E", ln)
+        m = re.search(r"((?:raster|sol)_[a-z]+_kernel)(?:IL[ib](\d+)E)?", ln)
         if m and "Compiling entry" in ln:
-            name = f"{m.group(1)}<{m.group(2)}>"
+            name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
             out[name] = ""
         elif name and ("registers" in ln or "spill stores" in ln):
             part = (re.search(r"Used \d+ registers", ln)
                     or re.search(r"\d+ bytes spill stores", ln)).group(0)
             out[name] = f"{out[name]}, {part}" if out[name] else part
     return out
-
-
-def cuda_ms(fn, iters, warmup=2):
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(iters):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / iters
 
 
 def cell_counts(rec_t, starts, counts, n_active):
@@ -239,6 +236,7 @@ def phase_k1(scene, extra_key, device, smi):
     import torch
     from dynamic3dgaussians_tpu_torch.ops.cuda.raster_fwd import (
         composite_tiles, composite_tiles_torch)
+    from dynamic3dgaussians_tpu_torch.tools.bench_sol import cuda_ms
 
     rec_t, starts, counts, n_chan, kw = bench_records(scene, extra_key,
                                                       device)
@@ -268,8 +266,8 @@ def phase_k1(scene, extra_key, device, smi):
     def run_p():
         composite_tiles_torch(rec_t, starts, counts, **kw)
 
-    ms = cuda_ms(run_k, iters=50)
-    plain_ms = cuda_ms(run_p, iters=3, warmup=1)
+    ms, _ = cuda_ms(run_k, iters=50, warmup=2)
+    plain_ms, _ = cuda_ms(run_p, iters=3)
     cells = cell_counts(rec_t, starts, counts, nact_k)
     work = dict(cells, **k1_work(cells, rec_t, starts.shape[0], n_val))
     rec = dict(phase="k1_vs_plain", cv=n_val, extra=extra_key,
@@ -294,6 +292,7 @@ def phase_k2(scene, extra_key, device, smi):
         composite_tiles_bwd, composite_tiles_bwd_torch)
     from dynamic3dgaussians_tpu_torch.ops.cuda.raster_fwd import \
         composite_tiles
+    from dynamic3dgaussians_tpu_torch.tools.bench_sol import cuda_ms
 
     rec_t, starts, counts, _, kw = bench_records(scene, extra_key, device)
     n_val = rec_t.shape[0] - 8
@@ -324,8 +323,8 @@ def phase_k2(scene, extra_key, device, smi):
     def run_p():
         composite_tiles_bwd_torch(*args, **kw)
 
-    ms = cuda_ms(run_k, iters=20)
-    plain_ms = cuda_ms(run_p, iters=2, warmup=1)
+    ms, _ = cuda_ms(run_k, iters=20, warmup=2)
+    plain_ms, _ = cuda_ms(run_p, iters=2)
     cells = cell_counts(rec_t, starts, counts, n_active)
     work = dict(cells, **k2_work(cells, rec_t, starts.shape[0], n_val))
     rec = dict(phase="k2_vs_plain", cv=n_val, extra=extra_key,
@@ -440,6 +439,7 @@ def phase_main_path(scene, device, smi):
         composite_tiles_bwd
     from dynamic3dgaussians_tpu_torch.ops.cuda.raster_fwd import \
         composite_tiles
+    from dynamic3dgaussians_tpu_torch.ops.cuda.sol_probe import sol_probe
     from dynamic3dgaussians_tpu_torch.viz.export import (load_params,
                                                          save_params)
     from dynamic3dgaussians_tpu_torch.viz.render import (params_at_t,
@@ -469,17 +469,20 @@ def phase_main_path(scene, device, smi):
                  "--radius", str(radius)]
         composite_tiles.launches = 0
         composite_tiles_bwd.launches = 0
+        sol_probe.launches = 0
         t_start = time.perf_counter()
         cli.main(["visualize", "--params", path, "--out", gif] + flags)
         torch.cuda.synchronize()
         cli_s = time.perf_counter() - t_start
         launches = {"raster_fwd": composite_tiles.launches,
-                    "raster_bwd": composite_tiles_bwd.launches}
+                    "raster_bwd": composite_tiles_bwd.launches,
+                    "sol_probe": sol_probe.launches}
         gif_bytes = os.path.getsize(gif)
         stacked = load_params(path)
-    if launches["raster_fwd"] != n_frames or launches["raster_bwd"]:
-        raise AssertionError(f"cli visualize launched K1 / K2 {launches} "
-                             f"times for {n_frames} frames")
+    if launches["raster_fwd"] != n_frames or launches["raster_bwd"] or \
+            launches["sol_probe"]:
+        raise AssertionError(f"cli visualize launched K1 / K2 / K3 "
+                             f"{launches} times for {n_frames} frames")
 
     center = stacked["means3D"].reshape(-1, 3).mean(0)
     cams = orbit_cameras(center, radius, -1.0, n_frames, W, H, F,
@@ -529,6 +532,9 @@ def phase_main_path(scene, device, smi):
 
 
 TRAIN_STEPS = 30
+TRAIN_T = 3
+TRAIN_STEPS_LATER = 10
+REPORT_EVERY = 5
 TRAIN_CAMS = 4
 # the cameras orbit the bench cube [-2, 2]^3 at the bench view's distance
 # (z = 6, as `main_path` orbits at radius 6)
@@ -536,6 +542,7 @@ TRAIN_RADIUS = 6.0
 # emission slots of the PSNR renders over every view, 4x the trainer's
 # largest K, so that no gaussian's tile rect is cut at orbit radius 6
 EVAL_K = 256
+PHYSICS = ("rigid", "rot", "iso", "floor", "bg", "soft_col_cons")
 
 
 def views_psnr(params, alive, frames, device):
@@ -567,12 +574,16 @@ def views_psnr(params, alive, frames, device):
 
 
 def train_bench(scene, device, tmp, radius=TRAIN_RADIUS, method=None):
-    """Write the bench scene as a 1-timestep, 4-camera 640x360 reference
-    layout on an orbit of `radius` and run `cli train --time_steps` on it:
-    30 steps, densify passes at i = 10 and 20, reports every 10,
-    `raster.method` = `method` when given. The kernels' launch counts are
-    set to 0 just before the command and read just after. Returns what
-    the run logged, with the PSNR of every view before and after."""
+    """Write the bench scene as a 3-timestep, 4-camera 640x360
+    reference layout on an orbit of `radius` (the foreground, the rows of
+    seg 1, moves rigidly over the timesteps) and run `cli train
+    --time_steps` on it: 30 steps at t = 0 with densify passes at i = 10
+    and 20, 10 steps at each later t, reports every 5, `raster.method` =
+    `method` when given. The kernels' launch counts are set to 0 just
+    before the command and read just after. Returns what the run logged,
+    with the PSNR of every view before and after each timestep: before t =
+    0 from the initial state, before t > 0 from the output of t - 1 at t's
+    views."""
     import torch
     from dynamic3dgaussians_tpu_torch import cli
     from dynamic3dgaussians_tpu_torch.convert import params_from_jax
@@ -584,36 +595,46 @@ def train_bench(scene, device, tmp, radius=TRAIN_RADIUS, method=None):
         composite_tiles_bwd
     from dynamic3dgaussians_tpu_torch.ops.cuda.raster_fwd import \
         composite_tiles
+    from dynamic3dgaussians_tpu_torch.ops.cuda.sol_probe import sol_probe
     from dynamic3dgaussians_tpu_torch.viz.export import load_params
     from dynamic3dgaussians_tpu_torch.viz.render import params_at_t
 
     seg = scene["seg_colors"][:, 0]
+    fg_first = np.argsort(-seg, kind="stable")    # the rows that move
     gt = dict(means=scene["means"], colors=scene["colors"],
               opac=scene["opac"], scales=scene["scales"],
-              quats=scene["quats"], seg=seg, n_fg=int(seg.sum()))
-    over = {"densify_start": 10, "densify_every": 10, "report_every": 10}
+              quats=scene["quats"], seg=seg)
+    gt = {k: v[fg_first] for k, v in gt.items()}
+    gt["n_fg"] = int(seg.sum())
+    over = {"densify_start": 10, "densify_every": 10,
+            "report_every": REPORT_EVERY}
     if method:
         over["raster"] = {"method": method}
     seq = f"bench_r{radius:g}_{method or 'default'}"
     t0 = time.perf_counter()
-    write_reference_layout(tmp, seq, num_t=1, num_cams=TRAIN_CAMS, w=W, h=H,
-                           f=F, scene=gt, radius=radius, device=device)
+    write_reference_layout(tmp, seq, num_t=TRAIN_T, num_cams=TRAIN_CAMS,
+                           w=W, h=H, f=F, scene=gt, radius=radius,
+                           device=device)
     layout_s = time.perf_counter() - t0
     cfg_path = os.path.join(tmp, f"{seq}.json")
     with open(cfg_path, "w") as fh:
         json.dump(over, fh)
-    argv = ["train", "--data_root", tmp, "--seq", seq, "--exp", "smoke",
-            "--output", os.path.join(tmp, "out"), "--timesteps", "1",
-            "--iters_first", str(TRAIN_STEPS), "--time_steps",
-            "--config_json", cfg_path]
+    # the default --timesteps: TRAIN_T
+    flags = ["--iters_first", str(TRAIN_STEPS), "--iters_per_t",
+             str(TRAIN_STEPS_LATER), "--time_steps"]
+    argv = (["train", "--data_root", tmp, "--seq", seq, "--exp", "smoke",
+             "--output", os.path.join(tmp, "out"), "--device", str(device),
+             "--config_json", cfg_path] + flags)
     composite_tiles.launches = 0
     composite_tiles_bwd.launches = 0
+    sol_probe.launches = 0
     t0 = time.perf_counter()
     cli.main(argv)
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
     launches = {"raster_fwd": composite_tiles.launches,
-                "raster_bwd": composite_tiles_bwd.launches}
+                "raster_bwd": composite_tiles_bwd.launches,
+                "sol_probe": sol_probe.launches}
     run = os.path.join(tmp, "out", "smoke", seq)
     path = os.path.join(run, "params.npz")
     if not os.path.exists(path):
@@ -621,84 +642,277 @@ def train_bench(scene, device, tmp, radius=TRAIN_RADIUS, method=None):
     with open(os.path.join(run, "metrics.jsonl")) as fh:
         rows = [json.loads(x) for x in fh]
 
-    # the PSNR of every view from the initial state and from params.npz
+    # the PSNR of every view before and after each timestep
     md = D.load_meta(tmp, seq)
-    frames = D.load_timestep(tmp, seq, md, 0, device=device)
     pt_cld = D.load_init_point_cloud(tmp, seq)
-    p0, v0 = G.init_params(pt_cld, D.scene_w2c_stack(md), device=device)
-    psnr_before, cut_before = views_psnr(p0, v0["alive"], frames, device)
     stacked = load_params(path)
-    p1 = params_from_jax(params_at_t(stacked, 0), device)
-    psnr_after, cut_after = views_psnr(p1, None, frames, device)
-
-    step_ms = [(r["step"], int(r["t0/time/k"]), r["t0/time/step_ms"])
-               for r in rows if "t0/time/step_ms" in r]
-    by_k = {}
-    for _, k, ms in step_ms:
-        by_k.setdefault(k, []).append(ms)
+    per_t = []
+    for t in range(TRAIN_T):
+        frames = D.load_timestep(tmp, seq, md, t, device=device)
+        if t == 0:
+            p0, v0 = G.init_params(pt_cld, D.scene_w2c_stack(md),
+                                   device=device)
+            psnr_before, cut_before = views_psnr(p0, v0["alive"], frames,
+                                                 device)
+        else:
+            psnr_before, cut_before = views_psnr(params_from_jax(
+                params_at_t(stacked, t - 1), device), None, frames, device)
+        psnr_after, cut_after = views_psnr(params_from_jax(
+            params_at_t(stacked, t), device), None, frames, device)
+        pre = f"t{t}/"
+        step_ms = [(r["step"], int(r[pre + "time/k"]),
+                    r[pre + "time/step_ms"])
+                   for r in rows if pre + "time/step_ms" in r]
+        by_k = {}
+        for _, k, ms in step_ms:
+            by_k.setdefault(k, []).append(ms)
+        per_t.append(dict(
+            t=t, steps=TRAIN_STEPS if t == 0 else TRAIN_STEPS_LATER,
+            reports=[dict(i=r["step"], loss=r[pre + "loss"],
+                          psnr=r[pre + "psnr"],
+                          n_dropped_rect=r[pre + "n_dropped_rect"],
+                          **{k: r[f"{pre}loss_{k}"] for k in PHYSICS
+                             if f"{pre}loss_{k}" in r})
+                     for r in rows if pre + "loss" in r],
+            psnr_views_before=psnr_before, psnr_views_after=psnr_after,
+            psnr_views_mean_before=float(np.mean(psnr_before)),
+            psnr_views_mean_after=float(np.mean(psnr_after)),
+            psnr_views_cut_rects=[cut_before, cut_after], step_ms=step_ms,
+            step_ms_median_by_k={str(k): float(np.median(v))
+                                 for k, v in sorted(by_k.items())},
+            steps_by_k={str(k): len(v) for k, v in sorted(by_k.items())},
+            final_k=step_ms[-1][1] if step_ms else None))
     return dict(
-        cmd="cli train " + " ".join(argv[argv.index("--timesteps"):-2]),
+        cmd="cli train " + " ".join(flags),
         radius=radius, method=method or "auto", config=over,
         n_gaussians=int(pt_cld.shape[0]), cameras=TRAIN_CAMS, w=W, h=H,
-        steps=TRAIN_STEPS, launches=launches,
-        reports=[dict(i=r["step"], loss=r["t0/loss"], psnr=r["t0/psnr"],
-                      n_dropped_rect=r["t0/n_dropped_rect"])
-                 for r in rows if "t0/loss" in r],
+        launches=launches,
         densify=[dict(i=r["step"], n_alive=r["t0/densify/n_alive"],
                       n_cloned=r["t0/densify/n_cloned"],
                       n_split=r["t0/densify/n_split"],
                       n_pruned=r["t0/densify/n_pruned"])
                  for r in rows if "t0/densify/n_alive" in r],
-        grow_tiles=[dict(i=r["step"],
-                         k=r["t0/grow_tiles/max_tiles_per_gaussian"])
-                    for r in rows
-                    if "t0/grow_tiles/max_tiles_per_gaussian" in r],
+        grow_tiles=[dict(t=t, i=r["step"],
+                         k=r[f"t{t}/grow_tiles/max_tiles_per_gaussian"])
+                    for t in range(TRAIN_T) for r in rows
+                    if f"t{t}/grow_tiles/max_tiles_per_gaussian" in r],
         graph=[dict(knn_s=r["t0/graph/knn_s"], rcm_s=r["t0/graph/rcm_s"])
                for r in rows if "t0/graph/knn_s" in r],
-        psnr_views_before=psnr_before, psnr_views_after=psnr_after,
-        psnr_views_mean_before=float(np.mean(psnr_before)),
-        psnr_views_mean_after=float(np.mean(psnr_after)),
-        psnr_views_cut_rects=[cut_before, cut_after],
-        n_out=int(stacked["means3D"].shape[1]), cli_s=cli_s,
-        layout_s=layout_s, step_ms=step_ms,
-        step_ms_median_by_k={str(k): float(np.median(v))
-                             for k, v in sorted(by_k.items())},
-        steps_by_k={str(k): len(v) for k, v in sorted(by_k.items())},
-        final_k=step_ms[-1][1] if step_ms else None)
+        n_out=int(stacked["means3D"].shape[1]),
+        out_timesteps=int(stacked["means3D"].shape[0]), cli_s=cli_s,
+        layout_s=layout_s, timesteps=per_t)
 
 
 def phase_train_main_path(scene, device, smi):
-    """`cli train` on the bench scene (see `train_bench`). Its step time is
-    the median of the steps the run took at the K it ended with, from the
-    run's own per-step log; K = 8 has only the untimed first step."""
+    """`cli train` over 3 timesteps of the bench scene (see
+    `train_bench`). Its step time per timestep is the median of the steps
+    the run took at the K it ended with, from the run's own per-step log;
+    the first step of each timestep is not timed."""
     with tempfile.TemporaryDirectory() as tmp:
         rec = train_bench(scene, device, tmp)
-    final = rec["step_ms_median_by_k"].get(str(rec["final_k"]))
-    rec = dict(phase="train_main_path", step_ms_median=final,
-               step_ms_median_at_k=rec["final_k"], card=smi, **rec)
+    per_t = rec["timesteps"]
+    medians = [ts["step_ms_median_by_k"].get(str(ts["final_k"]))
+               for ts in per_t]
+    rec = dict(phase="train_main_path", step_ms_median=medians,
+               step_ms_total=sum(x[2] for ts in per_t for x in ts["step_ms"]),
+               card=smi, **rec)
     emit(rec)
     launches, densify = rec["launches"], rec["densify"]
-    losses = [r["loss"] for r in rec["reports"]]
-    if not np.isfinite(losses).all() or len(losses) != TRAIN_STEPS // 10:
-        raise AssertionError(f"losses per report: {losses}")
-    if any(rec["psnr_views_cut_rects"]):
-        raise AssertionError(f"the PSNR renders cut tile rects: "
-                             f"{rec['psnr_views_cut_rects']}")
-    if not (rec["psnr_views_mean_after"] > rec["psnr_views_mean_before"]):
-        raise AssertionError(
-            f"PSNR over every view did not rise: "
-            f"{rec['psnr_views_before']} -> {rec['psnr_views_after']}")
-    if launches["raster_bwd"] != TRAIN_STEPS:
+    if rec["out_timesteps"] != TRAIN_T or len(per_t) != TRAIN_T:
+        raise AssertionError(f"params.npz holds {rec['out_timesteps']} "
+                             f"timesteps, not {TRAIN_T}")
+    for ts, median in zip(per_t, medians):
+        t = ts["t"]
+        # t = 0 reports the loss alone, t > 0 the physics terms as well
+        keys = ["loss"] + (list(PHYSICS) if t else [])
+        vals = [[r[k] for k in keys] for r in ts["reports"]
+                if all(k in r for k in keys)]
+        if len(vals) != ts["steps"] // REPORT_EVERY or \
+                not np.isfinite(vals).all():
+            raise AssertionError(f"t = {t}: {keys} per report: "
+                                 f"{ts['reports']}")
+        if any(ts["psnr_views_cut_rects"]):
+            raise AssertionError(f"t = {t}: the PSNR renders cut tile "
+                                 f"rects: {ts['psnr_views_cut_rects']}")
+        if not (ts["psnr_views_mean_after"] > ts["psnr_views_mean_before"]):
+            raise AssertionError(
+                f"t = {t}: PSNR over every view did not rise above "
+                f"{'the initial state' if t == 0 else 'the output of t - 1'}"
+                f": {ts['psnr_views_before']} -> {ts['psnr_views_after']}")
+        if len(ts["step_ms"]) != ts["steps"] - 1 or median is None:
+            raise AssertionError(f"t = {t}: step times {ts['step_ms']}")
+    total_steps = sum(ts["steps"] for ts in per_t)
+    if launches["raster_bwd"] != total_steps:
         raise AssertionError(f"K2 launched {launches['raster_bwd']} times in "
-                             f"{TRAIN_STEPS} steps")
-    if launches["raster_fwd"] < TRAIN_STEPS:
-        raise AssertionError(f"K1 launched {launches['raster_fwd']} times in "
-                             f"{TRAIN_STEPS} steps")
-    if len(rec["step_ms"]) != TRAIN_STEPS - 1 or final is None:
-        raise AssertionError(f"step times: {rec['step_ms']}")
+                             f"{total_steps} steps")
+    if launches["raster_fwd"] < total_steps or launches["sol_probe"]:
+        raise AssertionError(f"cli train launched K1 / K3 {launches} times "
+                             f"in {total_steps} steps")
     if len(densify) != 2 or not rec["graph"] or \
             rec["n_out"] != densify[-1]["n_alive"]:
         raise AssertionError(f"densify / graph / output rows: {rec}")
+    return rec
+
+
+def k3_errors(k, p, kind):
+    """K3's parts `k` (B, 2) or (2,) against the plain version's `p`: per
+    part the largest absolute and relative error and whether every walk is
+    within `K3_PART_TOL`; for the scalar (the parts' sum) the same against
+    `RTOL_K3`. Returns (errors, the names of the checks that failed)."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.ops.cuda.sol_probe import PARTS, total
+    errs, bad = {}, []
+    for i, name in enumerate(PARTS[kind]):
+        rtol, atol = K3_PART_TOL[kind][name]
+        kp, pp = k[..., i].double(), p[..., i].double()
+        diff = (kp - pp).abs()
+        excess = diff - (rtol * pp.abs() + atol)
+        errs[name] = dict(err_abs=float(diff.max()),
+                          err_rel=float((diff / pp.abs().clamp(min=1e-30))
+                                        .max()),
+                          value=float(kp.reshape(-1)[0]),
+                          value_plain=float(pp.reshape(-1)[0]))
+        if float(excess.max()) > 0 or not bool(torch.isfinite(kp).all()):
+            bad.append(name)
+    kt, pt = total(k).double(), total(p).double()
+    diff = (kt - pt).abs()
+    errs["scalar"] = dict(err_abs=float(diff.max()),
+                          err_rel=float((diff / pt.abs()).max()),
+                          value=float(kt.reshape(-1)[0]),
+                          value_plain=float(pt.reshape(-1)[0]))
+    if errs["scalar"]["err_rel"] > RTOL_K3[kind]:
+        bad.append("scalar")
+    return errs, bad
+
+
+def phase_k3(device, smi):
+    """K3 against its plain version at the bench shape (n_chunks 2143), in
+    every variant, on one walk (the reference's table) and card-wide: B
+    walks, 4 per SM, each with its own slice of a table of B x 35.1 MB,
+    far past the 50 MB L2. Each walk's two parts are held on their own
+    (`K3_PART_TOL`) and their sum as the reference's scalar (`RTOL_K3`).
+    Kernel times from CUDA events, the plain version's from one call;
+    bounds as in `phase_k1`."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.ops.cuda.sol_probe import (
+        KINDS, sol_probe, sol_probe_torch)
+    from dynamic3dgaussians_tpu_torch.tools import bench_sol as B
+
+    rec_np, _ = B.probe_inputs(small=False)
+    n_chunks = rec_np.shape[1] // B.CHUNK
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    walks = B.WALKS_PER_SM * sms
+    tables = {"one_walk": torch.as_tensor(rec_np, device=device),
+              "card_wide": B.card_table(walks, n_chunks, device)}
+    out = dict(phase="k3_vs_plain", n_chunks=n_chunks, walks=walks,
+               table_bytes_card_wide=tables["card_wide"].numel() * 4,
+               tol=dict(scalar_rtol=RTOL_K3, parts=K3_PART_TOL), card=smi)
+    bad = []
+    for kind in KINDS:
+        for scope, rec in tables.items():
+            k = sol_probe(rec, kind)
+            plain_ms, p = B.cuda_ms(lambda: sol_probe_torch(rec, kind),
+                                    iters=1, warmup=0)
+            errs, failed = k3_errors(k, p, kind)
+            w = B.work(kind, walks if scope == "card_wide" else 1, n_chunks)
+            ms, _ = B.cuda_ms(lambda: sol_probe(rec, kind),
+                              iters=3 if scope == "card_wide" else 5,
+                              warmup=0)
+            out[f"{kind}/{scope}"] = dict(
+                err_abs=float((k - p).abs().max()), errors=errs, ms=ms,
+                plain_ms=plain_ms, ns_per_cell=ms * 1e6 / w["cells"],
+                GB_s=w["table_bytes"] / ms / 1e6,
+                bound_share=w["bound_ms"] / ms, **w)
+            bad += [(kind, scope, name) for name in failed]
+    del tables
+    torch.cuda.empty_cache()
+    emit(out)
+    if bad:
+        raise AssertionError(f"K3 disagrees with its plain version: {bad}")
+    return out
+
+
+def phase_probe_main_path(k3, device, smi):
+    """The probe's entry point as a user runs it (`python -m
+    dynamic3dgaussians_tpu_torch.tools.bench_sol`), the launch counts set
+    to 0 just before and read just after. Each variant's one-walk scalar
+    and its two parts are held against the plain version's from
+    `phase_k3`."""
+    import contextlib
+    import io
+
+    import torch
+    from dynamic3dgaussians_tpu_torch.ops.cuda.raster_bwd import \
+        composite_tiles_bwd
+    from dynamic3dgaussians_tpu_torch.ops.cuda.raster_fwd import \
+        composite_tiles
+    from dynamic3dgaussians_tpu_torch.ops.cuda.sol_probe import (KINDS,
+                                                                 sol_probe)
+    from dynamic3dgaussians_tpu_torch.tools import bench_sol
+
+    buf = io.StringIO()
+    composite_tiles.launches = 0
+    composite_tiles_bwd.launches = 0
+    sol_probe.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = bench_sol.main([])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = {"raster_fwd": composite_tiles.launches,
+                "raster_bwd": composite_tiles_bwd.launches,
+                "sol_probe": sol_probe.launches}
+    lines = [x for x in buf.getvalue().splitlines()
+             if x.startswith("SOL_RESULT ")]
+    result = json.loads(lines[-1][len("SOL_RESULT "):]) if lines else {}
+    rec = dict(phase="probe_main_path",
+               cmd="python -m dynamic3dgaussians_tpu_torch.tools.bench_sol",
+               rc=rc, cli_s=cli_s,
+               launches=launches, result=result, card=smi)
+    emit(rec)
+    # per variant: the one-walk value, a warm-up and the timed calls, then
+    # the same on the card-wide table
+    want = len(KINDS) * 2 * (2 + bench_sol.ITERS)
+    if rc != 0 or launches["sol_probe"] != want or launches["raster_fwd"] \
+            or launches["raster_bwd"]:
+        raise AssertionError(f"the probe returned {rc} and launched "
+                             f"{launches}, not K3 {want} times")
+    for kind in KINDS:
+        line = result.get(kind, {})
+        errs = k3[f"{kind}/one_walk"]["errors"]
+        ref = errs["scalar"]["value_plain"]
+        ok = (np.isfinite(line.get("value", np.nan))
+              and line.get("card_wide", {}).get("finite") is True
+              and abs(line["value"] - ref) <= RTOL_K3[kind] * abs(ref))
+        for name, (rtol, atol) in K3_PART_TOL[kind].items():
+            want = errs[name]["value_plain"]
+            got = line.get("parts", {}).get(name, np.nan)
+            ok = ok and abs(got - want) <= rtol * abs(want) + atol
+        if not ok:
+            raise AssertionError(f"probe line {kind}: {line}")
+    return rec
+
+
+def floor_rec(k1, k2, k3, train_launches, smi):
+    """ns per walked cell of K1 and K2 at the bench view against K3's
+    card-wide floor for the same cell pipeline, and each kernel's gap to
+    that floor (its time less its walked cells at the floor's rate) times
+    its launches in the `cli train` run."""
+    rec = dict(phase="floor", card=smi, cv=8)
+    for kind in ("compute_only", "stream_compute"):
+        rec[f"k3_{kind}_ns_per_cell"] = k3[f"{kind}/card_wide"]["ns_per_cell"]
+    fl = rec["k3_stream_compute_ns_per_cell"]
+    for name, r, kern in (("k1", k1, "raster_fwd"), ("k2", k2, "raster_bwd")):
+        rec[f"{name}_ns_per_walked_cell"] = r["ms"] * 1e6 / r["walked_cells"]
+        rec[f"{name}_ns_per_live_cell"] = r["ms"] * 1e6 / r["live_cells"]
+        rec[f"{name}_over_floor"] = rec[f"{name}_ns_per_walked_cell"] / fl
+        floor_ms = r["walked_cells"] * fl * 1e-6
+        rec[f"{name}_floor_ms"] = floor_ms
+        rec[f"{name}_gap_ms"] = r["ms"] - floor_ms
+        rec[f"{name}_train_launches"] = train_launches[kern]
+        rec[f"{name}_train_gap_ms"] = (r["ms"] - floor_ms) * \
+            train_launches[kern]
+    emit(rec)
     return rec
 
 
@@ -712,6 +926,8 @@ def main() -> int:
     # fails here and prints no result
     sys.path.insert(0, REPO)
     from dynamic3dgaussians_tpu_torch import _build
+
+    from dynamic3dgaussians_tpu_torch.tools.bench_sol import smi_line
 
     device = torch.device("cuda")
     smi = smi_line()
@@ -735,15 +951,20 @@ def main() -> int:
     for extra_key in ("seg_colors", "feats"):
         rec = phase_k2(scene, extra_key, device, smi)
         k2[rec["cv"]] = rec
+    k3 = phase_k3(device, smi)
     phase_oracle(device)
     phase_grad_golden(device)
     view_rec = phase_main_path(scene, device, smi)
     train_rec = phase_train_main_path(scene, device, smi)
+    probe_rec = phase_probe_main_path(k3, device, smi)
+    floor_rec(k1[8], k2[8], k3, train_rec["launches"], smi)
 
-    # both main paths pass RGB + 3 seg channels: CV = 8
-    by_path = {name: dict(visualize=view_rec["launches"][name],
-                          train=train_rec["launches"][name])
-               for name in ("raster_fwd", "raster_bwd")}
+    # both render paths pass RGB + 3 seg channels: CV = 8
+    paths = (("visualize", view_rec), ("train", train_rec),
+             ("probe", probe_rec))
+    by_path = {name: {p: r["launches"][name] for p, r in paths}
+               for name in ("raster_fwd", "raster_bwd", "sol_probe")}
+    wide = k3["stream_compute/card_wide"]
     emit({"kernels": [
         dict(name="raster_fwd", route="cuda",
              source="dynamic3dgaussians_tpu_torch/csrc/raster_fwd.cu",
@@ -761,7 +982,19 @@ def main() -> int:
              launches_by_path=by_path["raster_bwd"],
              max_abs_err=k2[8]["err_abs"], ms=k2[8]["ms"],
              plain_ms=k2[8]["plain_ms"], bound_ms=k2[8]["bound_ms"],
-             bound_by=k2[8]["bound_by"], library_ms=None)]})
+             bound_by=k2[8]["bound_by"], library_ms=None),
+        # the card-wide stream_compute call: every block streamed and run
+        # through the cell pipeline, B walks
+        dict(name="sol_probe", route="cuda",
+             source="dynamic3dgaussians_tpu_torch/csrc/sol_probe.cu",
+             replaces="tools/bench_vpu_sol.py:129",
+             launches=probe_rec["launches"]["sol_probe"],
+             launches_by_path=by_path["sol_probe"],
+             max_abs_err=wide["err_abs"],
+             max_rel_err={n: e["err_rel"] for n, e in wide["errors"].items()},
+             ms=wide["ms"], plain_ms=wide["plain_ms"],
+             bound_ms=wide["bound_ms"], bound_by=wide["bound_by"],
+             library_ms=None)]})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -11,8 +11,10 @@ ported path is a hand-written Hopper kernel under `csrc/`, bound with ctypes
 Entry points run on `cuda` unless the caller passes `device=...`; without
 CUDA and without an explicit device they raise (see `device.resolve_device`).
 
-Ported so far: the forward render of a trained scene (`cli visualize`)
-and the first timestep of training (`cli train` with one timestep: the
-render's gradient through the backward kernel, losses, Adam,
-densification, compaction, the kNN graph and the RCM reorder).
+Ported so far: the forward render of a trained scene (`cli visualize`),
+training over every timestep (`cli train`: the render's gradient through
+the backward kernel, losses, Adam, densification, compaction, the kNN graph
+and the RCM reorder at t = 0; forward extrapolation, the neighbour lookup
+and the physics losses at t > 0), and the speed-of-light probe of the tile
+walk (`tools/bench_sol.py`).
 """

@@ -115,6 +115,8 @@ def load_library() -> ctypes.CDLL:
     lib.d3g_raster_bwd.argtypes = [vp, i64, i32, vp, vp, vp, vp, vp, i32, i32,
                                    i32, i32, i32, vp, vp]
     lib.d3g_raster_bwd.restype = i32
+    lib.d3g_sol_probe.argtypes = [vp, i64, i32, i32, vp, vp]
+    lib.d3g_sol_probe.restype = i32
     lib.d3g_error_string.argtypes = [i32]
     lib.d3g_error_string.restype = ctypes.c_char_p
     return lib

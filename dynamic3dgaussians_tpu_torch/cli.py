@@ -1,15 +1,17 @@
 """Command-line entry points of the port.
 
   python -m dynamic3dgaussians_tpu_torch.cli train --data_root data \
-      --seq cmu_bike --exp exp1 --timesteps 1 [--device cuda]
+      --seq cmu_bike --exp exp1 [--timesteps 3] [--device cuda]
   python -m dynamic3dgaussians_tpu_torch.cli visualize \
       --params output/exp1/seq/params.npz [--out orbit.gif] [--device cuda]
 
-`train` fits the first timestep of a sequence in the reference data layout
-(or the built-in synthetic scene) and writes the reference's
-`<output>/<exp>/<seq>/params.npz`, with `cfg_args.json` and
-`metrics.jsonl` beside it; its flags are the reference's `train` flags,
-plus `--time_steps`, which logs each step's wall time.
+`train` fits every timestep of a sequence in the reference data layout
+(or the built-in synthetic scene), the first from the initial point cloud
+and each later one from its predecessor under the physics losses, and
+writes the reference's stacked `<output>/<exp>/<seq>/params.npz`, with
+`cfg_args.json` and `metrics.jsonl` beside it; its flags are the
+reference's `train` flags, plus `--time_steps`, which logs each step's
+wall time. Checkpoints (`--checkpoint_every`) are not ported and raise.
 `visualize` orbit-renders a stacked params.npz to a GIF. Both run on `cuda`
 unless `--device` says otherwise.
 """
@@ -145,7 +147,8 @@ def cmd_train(args):
 
     def on_iter(t, i, k):
         # the wall time of one iteration of the loop (step, densify, report),
-        # from the end of the previous one: the first step is not timed
+        # from the end of the previous one: the first step of each timestep
+        # is not timed
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         now = time.perf_counter()
@@ -157,6 +160,7 @@ def cmd_train(args):
     get_frames = dataset if callable(dataset) else dataset.__getitem__
 
     def on_timestep(t, params, variables):
+        last_step_end[0] = None
         # render-vs-GT panel of the finished timestep
         frame = get_frames(t)[0]
         with torch.no_grad():
@@ -210,8 +214,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser(prog="dynamic3dgaussians_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
-    p = sub.add_parser("train", help="per-timestep optimisation (first "
-                                     "timestep)")
+    p = sub.add_parser("train", help="per-timestep optimisation of a "
+                                     "sequence")
     p.add_argument("--model_dir", type=str, default=None,
                    help="load the TrainConfig of a previous run "
                         "(cfg_args.json) as the base")

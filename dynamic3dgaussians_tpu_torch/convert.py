@@ -46,9 +46,21 @@ def params_from_jax(params: Dict[str, np.ndarray],
 def variables_from_jax(variables: Dict[str, np.ndarray],
                        device: DeviceLike = None) -> Dict[str, torch.Tensor]:
     """Host arrays of the reference's `variables` (alive mask, scene
-    radius, densification statistics, ...) -> tensors on `device`
-    (default `cuda`); floating arrays become float32, booleans stay bool."""
-    return params_from_jax(variables, device)
+    radius, densification statistics, the kNN graph and the t - 1 state of
+    a timestep t > 0) -> tensors on `device` (default `cuda`); floating
+    arrays become float32, booleans stay bool. `prev_offset` goes from the
+    reference's feature-major (3, K, cap) to the port's (cap, K, 3). The
+    TPU's windowed neighbour fetch (`win_*`) has no counterpart and is
+    refused."""
+    win = sorted(k for k in variables if k.startswith("win_"))
+    if win:
+        raise ValueError(f"the windowed neighbour fetch {win} is not "
+                         f"ported; build the state with neighbor_window "
+                         f"off")
+    out = params_from_jax(variables, device)
+    if "prev_offset" in out:
+        out["prev_offset"] = out["prev_offset"].permute(2, 1, 0).contiguous()
+    return out
 
 
 def adam_state_from_jax(mu: Dict[str, np.ndarray], nu: Dict[str, np.ndarray],

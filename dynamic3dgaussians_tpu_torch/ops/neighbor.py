@@ -1,22 +1,26 @@
-"""The fixed neighbour graph's host-side plans (built once after t = 0).
+"""The fixed neighbour graph: its host-side plans and the lookup of t > 0.
 
-Port of the host half of `dynamic3dgaussians_tpu/ops/neighbor.py`:
+Port of `dynamic3dgaussians_tpu/ops/neighbor.py`:
 
   * `locality_order`: reverse Cuthill-McKee order of the foreground kNN
     subgraph (scipy), foreground rows first, so that every edge's index
     span is bounded;
   * `build_edge_reduction`: the static plan of the neighbour lookup's
     backward, rank[e] = position of edge slot e in destination-sorted order
-    and row_ptr the run boundaries per destination.
+    and row_ptr the run boundaries per destination;
+  * `neighbor_lookup` / `lookup_components`: the row gather of every
+    gaussian's K neighbours, whose backward sums each destination's edges
+    over that plan in a fixed order (no atomics).
 
-The lookup itself (`neighbor_lookup`, `lookup_components`) is part of the
-t > 0 step and is not ported yet; the reference's `WindowPlan` (a TPU
-matrix-unit fetch, slower there too) is not ported.
+Layout: row-major, (cap, K, F) records and (cap, K) components; the
+reference keeps them feature-major (F, K, cap) only for the TPU's lanes.
+The reference's `WindowPlan` (a TPU matrix-unit fetch, slower there too) is
+not ported.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -87,3 +91,57 @@ def build_edge_reduction(idx: np.ndarray, n_dst: Optional[int] = None,
         torch.as_tensor(rank.astype(np.int32), device=device),
         torch.as_tensor(row_ptr.astype(np.int32), device=device),
         int((~invalid).sum()))
+
+
+class _Lookup(torch.autograd.Function):
+    """rec[i, k] = tbl[idx[i, k]] over the plan's destination prefix; the
+    backward sums each table row's edges in destination-sorted order."""
+
+    @staticmethod
+    def forward(ctx, tbl, idx, rank, row_ptr):
+        cap = idx.shape[0]
+        n_dst = row_ptr.shape[0] - 1
+        rec = tbl[torch.clamp(idx[:n_dst], min=0).long()]   # (n_dst, K, F)
+        if n_dst < cap:
+            rec = torch.cat([rec, rec.new_zeros((cap - n_dst,)
+                                                + rec.shape[1:])])
+        ctx.save_for_backward(rank, row_ptr)
+        ctx.tbl_shape = tuple(tbl.shape)
+        return rec
+
+    @staticmethod
+    def backward(ctx, d_rec):
+        rank, row_ptr = ctx.saved_tensors
+        cap, f = ctx.tbl_shape
+        n_dst = row_ptr.shape[0] - 1
+        d_edges = d_rec[:n_dst].reshape(-1, f)             # (n_dst * K, F)
+        # destination-sorted: a permutation, so a plain indexed store
+        s = torch.empty_like(d_edges)
+        s[rank.long()] = d_edges
+        # each destination's run summed in order; the invalid edges sort
+        # past row_ptr[-1] and drop out
+        d_tbl = d_rec.new_zeros((cap, f))
+        d_tbl[:n_dst] = torch.segment_reduce(s, "sum",
+                                             offsets=row_ptr.long(), axis=0)
+        return d_tbl, None, None, None
+
+
+def neighbor_lookup(tbl: torch.Tensor, idx: torch.Tensor,
+                    plan: EdgeReduction) -> torch.Tensor:
+    """(cap, K, F) records rec[i, k] = tbl[idx[i, k]], differentiable in
+    `tbl`.
+
+    An invalid slot (idx < 0) reads row 0 and passes no gradient; under a
+    prefix plan (built with n_dst < cap) the rows at or past n_dst read
+    0.0. Downstream masks both. `plan` must be `build_edge_reduction` of
+    the same `idx`. The backward is deterministic: every table row sums its
+    edges over the plan's static destination order.
+    """
+    return _Lookup.apply(tbl, idx, plan.rank, plan.row_ptr)
+
+
+def lookup_components(tbl_cols: Sequence[torch.Tensor], idx: torch.Tensor,
+                      plan: EdgeReduction) -> Tuple[torch.Tensor, ...]:
+    """(cap,) columns in, one (cap, K) neighbour component per column out."""
+    rec = neighbor_lookup(torch.stack(list(tbl_cols), dim=-1), idx, plan)
+    return tuple(rec.unbind(-1))

@@ -1,14 +1,14 @@
-"""Training losses of the first timestep: image, segmentation, depth.
+"""Training losses: image, segmentation, depth and the physics terms.
 
-Port of the t = 0 terms of `dynamic3dgaussians_tpu/train/losses.py`:
+Port of `dynamic3dgaussians_tpu/train/losses.py`:
 
   * l1 / weighted-l2 primitives, masked mean, PSNR, Pearson correlation
   * 0.8 * L1 + 0.2 * DSSIM image loss
   * the depth Pearson loss (min over two inverse-depth variants)
   * the per-camera colour correction exp(m) * img + c
   * the default loss weights
-
-The physics losses of t > 0 (`physics_losses`) are not ported yet.
+  * the physics losses of t > 0 (`physics_losses`): rigid, rot, iso,
+    floor, bg and soft_col_cons, masked at full capacity
 """
 
 from __future__ import annotations
@@ -17,6 +17,9 @@ from typing import Dict
 
 import torch
 
+from dynamic3dgaussians_tpu_torch.ops import quat
+from dynamic3dgaussians_tpu_torch.ops.neighbor import (EdgeReduction,
+                                                       lookup_components)
 from dynamic3dgaussians_tpu_torch.ops.ssim import calc_ssim
 
 DEFAULT_LOSS_WEIGHTS: Dict[str, float] = {
@@ -86,3 +89,74 @@ def depth_pearson_loss(pred_depth, gt_depth):
 def apply_cam_correction(img, cam_m, cam_c):
     """Per-camera affine colour correction exp(m) * img + c."""
     return torch.exp(cam_m)[None, None, :] * img + cam_c[None, None, :]
+
+
+def physics_losses(act_means: torch.Tensor, act_rots: torch.Tensor,
+                   rgb_colors: torch.Tensor, variables: Dict,
+                   is_fg: torch.Tensor, alive: torch.Tensor) -> Dict:
+    """rigid / rot / iso / floor / bg / soft_col_cons for t > 0.
+
+    All capacity-padded: act_means (cap, 3), act_rots (cap, 4) normalised,
+    rgb_colors (cap, 3) raw, is_fg and alive (cap,). `variables` carries
+    the t - 1 state and the kNN graph: neighbor_indices (cap, K) (-1 =
+    none), edge_rank / edge_row_ptr (its `EdgeReduction`),
+    neighbor_weight and neighbor_dist (cap, K), prev_inv_rot (cap, 4),
+    prev_offset (cap, K, 3), prev_col (cap, 3), init_bg_pts (cap, 3) and
+    init_bg_rot (cap, 4).
+    """
+    idx = variables["neighbor_indices"]
+    plan = EdgeReduction(variables["edge_rank"], variables["edge_row_ptr"],
+                         0)
+    w = variables["neighbor_weight"]                          # (cap, K)
+    fg = is_fg & alive
+    row_ok = fg[:, None] & (idx >= 0)
+
+    rel_rot = quat.normalize(quat.quat_mult(act_rots,
+                                            variables["prev_inv_rot"]))
+    mx, my, mz = act_means.unbind(-1)
+    q0, q1, q2, q3 = rel_rot.unbind(-1)
+    nx, ny, nz, nq0, nq1, nq2, nq3 = lookup_components(
+        (mx, my, mz, q0, q1, q2, q3), idx, plan)             # (cap, K) each
+    ox, oy, oz = nx - mx[:, None], ny - my[:, None], nz - mz[:, None]
+
+    # R^T @ offset, R built elementwise from the relative quaternion (the
+    # reference's order of operations)
+    r00 = 1 - 2 * (q2 * q2 + q3 * q3)
+    r01 = 2 * (q1 * q2 - q0 * q3)
+    r02 = 2 * (q1 * q3 + q0 * q2)
+    r10 = 2 * (q1 * q2 + q0 * q3)
+    r11 = 1 - 2 * (q1 * q1 + q3 * q3)
+    r12 = 2 * (q2 * q3 - q0 * q1)
+    r20 = 2 * (q1 * q3 - q0 * q2)
+    r21 = 2 * (q2 * q3 + q0 * q1)
+    r22 = 1 - 2 * (q1 * q1 + q2 * q2)
+    cx = r00[:, None] * ox + r10[:, None] * oy + r20[:, None] * oz
+    cy = r01[:, None] * ox + r11[:, None] * oy + r21[:, None] * oz
+    cz = r02[:, None] * ox + r12[:, None] * oy + r22[:, None] * oz
+
+    pox, poy, poz = variables["prev_offset"].unbind(-1)       # (cap, K)
+    losses = {"rigid": masked_mean(torch.sqrt(
+        ((cx - pox) ** 2 + (cy - poy) ** 2 + (cz - poz) ** 2) * w + 1e-20),
+        row_ok)}
+    losses["rot"] = masked_mean(torch.sqrt(
+        ((nq0 - q0[:, None]) ** 2 + (nq1 - q1[:, None]) ** 2
+         + (nq2 - q2[:, None]) ** 2 + (nq3 - q3[:, None]) ** 2) * w + 1e-20),
+        row_ok)
+    curr_mag = torch.sqrt(ox * ox + oy * oy + oz * oz + 1e-20)
+    losses["iso"] = masked_mean(torch.sqrt(
+        (curr_mag - variables["neighbor_dist"]) ** 2 * w + 1e-20), row_ok)
+
+    y = act_means[:, 1]
+    losses["floor"] = masked_mean(torch.maximum(y, torch.zeros_like(y)), fg)
+
+    # |x| with the reference's derivative at 0: on the first step of each
+    # t > 0 these differences are exactly 0 (see `_abs`)
+    bg = (~is_fg) & alive
+    losses["bg"] = (
+        masked_mean(_abs(act_means - variables["init_bg_pts"]).sum(dim=-1),
+                    bg)
+        + masked_mean(_abs(act_rots - variables["init_bg_rot"]).sum(dim=-1),
+                      bg))
+    losses["soft_col_cons"] = masked_mean(
+        _abs(rgb_colors - variables["prev_col"]).sum(dim=-1), alive)
+    return losses

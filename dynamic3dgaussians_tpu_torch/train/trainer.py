@@ -1,13 +1,20 @@
-"""The per-timestep training driver, first timestep.
+"""The per-timestep training driver.
 
-Port of `dynamic3dgaussians_tpu/train/trainer.py` for t = 0:
+Port of `dynamic3dgaussians_tpu/train/trainer.py`:
 
   train(dataset, cfg, pt_cld, w2c_stack)
     init_params -> capacity-padded tables (models.gaussians)
-    for i in iters: train_step (render RGB + seg in one pass through the
-      kernels' autograd Function, losses, Adam), densify at its cadence,
-      K escalation at report steps
-    compact -> kNN graph -> foreground-first RCM row reorder -> params.npz
+    for t in timesteps:
+      t > 0: initialize_per_timestep (forward extrapolation, the t - 1
+        state the physics losses hold the step to, Adam moments of means
+        and rotations reset)
+      for i in iters: train_step (render RGB + seg in one pass through the
+        kernels' autograd Function, losses -- the physics terms at t > 0 --,
+        Adam), densify at its cadence (t = 0 only), K escalation at report
+        steps, carried across timesteps
+      t = 0: compact -> kNN graph -> foreground-first RCM row reorder
+      the timestep's parameters -> host (all at t = 0, then means, colours
+        and rotations)
 
 The same seed gives the same camera stream as the reference (numpy
 `RandomState(cfg.seed)`, picks without replacement) and the same schedule of
@@ -16,11 +23,9 @@ live-pair count of the sort; the rect-drop count is summed on the device
 and read only at report steps, and the metrics stay tensors until a
 callback reads them.
 
-Not ported yet: the t > 0 step (physics losses, neighbour lookup, forward
-extrapolation), so `num_timesteps > 1` raises; checkpoints
-(`checkpoint_dir`) raise too. The reference's on-device multi-step window
-(`steps_per_call`) only amortises TPU dispatch; here the same steps run one
-at a time.
+Not ported: checkpoints (`checkpoint_dir`) raise. The reference's on-device
+multi-step window (`steps_per_call`) only amortises TPU dispatch; here the
+same steps run one at a time.
 """
 
 from __future__ import annotations
@@ -37,8 +42,10 @@ from dynamic3dgaussians_tpu_torch.device import DeviceLike, resolve_device
 from dynamic3dgaussians_tpu_torch.models import gaussians as G
 from dynamic3dgaussians_tpu_torch.ops import quat
 from dynamic3dgaussians_tpu_torch.ops.knn import knn
-from dynamic3dgaussians_tpu_torch.ops.neighbor import (build_edge_reduction,
-                                                       locality_order)
+from dynamic3dgaussians_tpu_torch.ops.neighbor import (EdgeReduction,
+                                                       build_edge_reduction,
+                                                       locality_order,
+                                                       neighbor_lookup)
 from dynamic3dgaussians_tpu_torch.ops.rasterize import RasterConfig, render
 from dynamic3dgaussians_tpu_torch.train import densify as densify_mod
 from dynamic3dgaussians_tpu_torch.train import losses as L
@@ -64,10 +71,6 @@ def compute_loss(params: Dict, probe: torch.Tensor, batch: Dict,
     gt_depth (H, W) and gt_feature (h, w, F)}. Returns (loss, aux) with the
     radii for the densification statistics.
     """
-    if not is_initial:
-        raise NotImplementedError(
-            "the t > 0 step (physics losses, neighbour lookup) is slice 3 "
-            "of the port and not ported yet")
     alive = variables["alive"]
     act = G.activated(params, alive)
     extra = params["seg_colors"]
@@ -97,6 +100,11 @@ def compute_loss(params: Dict, probe: torch.Tensor, batch: Dict,
                                  mode="bilinear", align_corners=False,
                                  antialias=True)[0].permute(1, 2, 0)
         losses["feature"] = L.image_loss(feat, gt_feat)
+    if not is_initial:
+        is_fg = params["seg_colors"][:, 0] > 0.5
+        losses.update(L.physics_losses(
+            act["means3d"], act["rotations"], params["rgb_colors"],
+            variables, is_fg, alive))
 
     w = cfg.loss_weights
     total = sum(float(w.get(k, 0.0)) * v for k, v in losses.items())
@@ -191,6 +199,38 @@ def densify_with_growth(params, variables, opt_state, i: int,
     return new_state
 
 
+def initialize_per_timestep(params: Dict, variables: Dict,
+                            opt_state: optim.AdamState):
+    """Forward extrapolation and the t - 1 state, at the start of t > 0.
+
+    New means and rotations x + (x - prev_x); the physics losses' t - 1
+    state: the inverse rotations, the neighbour offsets of the points
+    before the extrapolation (cap, K, 3), the colours, and prev_pts /
+    prev_rot for the next extrapolation; the Adam moments of means and
+    rotations reset. Returns (params, variables, opt_state).
+    """
+    with torch.no_grad():
+        pts = params["means3D"]
+        rot = quat.normalize(params["unnorm_rotations"])
+        new_pts = pts + (pts - variables["prev_pts"])
+        new_rot = quat.normalize(rot + (rot - variables["prev_rot"]))
+        plan = EdgeReduction(variables["edge_rank"],
+                             variables["edge_row_ptr"], 0)
+        nb = neighbor_lookup(pts, variables["neighbor_indices"], plan)
+        new_vars = dict(variables)
+        new_vars["prev_inv_rot"] = quat.conjugate(rot)
+        new_vars["prev_offset"] = nb - pts[:, None, :]
+        new_vars["prev_col"] = params["rgb_colors"]
+        new_vars["prev_pts"] = new_pts
+        new_vars["prev_rot"] = new_rot
+    new_params = dict(params)
+    new_params["means3D"] = new_pts
+    new_params["unnorm_rotations"] = new_rot
+    opt_state = optim.reset_moments(opt_state, "means3D")
+    opt_state = optim.reset_moments(opt_state, "unnorm_rotations")
+    return new_params, new_vars, opt_state
+
+
 def initialize_post_first_timestep(params: Dict, variables: Dict,
                                    cfg: TrainConfig, opt_state=None,
                                    timings: Optional[Dict] = None):
@@ -276,7 +316,7 @@ def train(dataset, cfg: TrainConfig, pt_cld: np.ndarray,
           w2c_stack: np.ndarray, callbacks: Optional[Dict] = None,
           checkpoint_dir: Optional[str] = None, checkpoint_every: int = 0,
           resume: bool = False, device: DeviceLike = None):
-    """Optimise the first timestep of a sequence.
+    """Optimise every timestep of a sequence.
 
     dataset: dataset[t] = list of camera datapoints (dicts as in
     compute_loss, on `device`), or a callable t -> that list. pt_cld (N, 7)
@@ -291,11 +331,6 @@ def train(dataset, cfg: TrainConfig, pt_cld: np.ndarray,
     Returns (output_params, params, variables): the host checkpoints per
     timestep and the final device state.
     """
-    if cfg.num_timesteps > 1:
-        raise NotImplementedError(
-            "num_timesteps > 1 needs the t > 0 step (physics losses, "
-            "neighbour lookup, forward extrapolation): slice 3 of the port, "
-            "not ported yet")
     if checkpoint_dir:
         raise NotImplementedError("training checkpoints (checkpoint_dir, "
                                   "resume) are not ported yet")
@@ -330,6 +365,9 @@ def train(dataset, cfg: TrainConfig, pt_cld: np.ndarray,
     for t in range(cfg.num_timesteps):
         is_initial = t == 0
         data_t = get_t(t)
+        if not is_initial:
+            params, variables, opt_state = initialize_per_timestep(
+                params, variables, opt_state)
         num_iters = (cfg.iters_first_timestep if is_initial
                      else cfg.iters_per_timestep)
         lrs = lr_tree(frozen=not is_initial)

@@ -20,15 +20,18 @@ the `render_frame` inputs: RGB + 3 seg channels) and prints JSON lines:
     synchronisations per frame, and the kernels that take most device
     time.
 
-Train step: the first-timestep step of `cli train` on the bench scene as
-`chip_smoke.py` trains it (200k gaussians initialised from a perturbed
-cloud, an 800k-row table, 640x360 cameras at orbit radius 6), at K = 8
-emission slots and at K = 64, where the trainer's K escalation ends:
+Train step: the step of `cli train` on the bench scene as `chip_smoke.py`
+trains it (200k gaussians initialised from a perturbed cloud, an
+800k-row table, 640x360 cameras at orbit radius 6): the first-timestep
+step at K = 8 emission slots and at K = 64, where the trainer's K
+escalation ends, and a later-timestep step (t > 0: the kNN graph built
+and the state extrapolated as `train` does it) at K = 64:
 
   * `train_stages`: loss (render forward and losses), backward (autograd
     through K2 and the projection), update (dead-row mask, Adam, the
     densification statistics) and step (`make_train_step`'s whole step),
-    host clock, synchronised, median over --reps;
+    at t > 0 also physics (`physics_losses` forward and its gradient
+    alone), host clock, synchronised, median over --reps;
   * `train_profile`: the `torch.profiler` summary of --steps steps.
 
 With --train-witness it runs only `chip_smoke.py`'s `cli train` on the
@@ -62,6 +65,7 @@ from dynamic3dgaussians_tpu_torch.ops.camera import make_camera
 from dynamic3dgaussians_tpu_torch.ops.cuda.raster_fwd import composite_tiles
 from dynamic3dgaussians_tpu_torch.ops.projection import project
 from dynamic3dgaussians_tpu_torch.ops.sorted_raster import sorted_records
+from dynamic3dgaussians_tpu_torch.tools.bench_sol import smi_line
 from dynamic3dgaussians_tpu_torch.viz.render import render_frame, to_uint8
 
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
@@ -171,15 +175,43 @@ def train_setup(dev):
     return params, variables, optim.init(params), data[0][0]
 
 
-def train_stage_times(state, batch, k_slots, dev):
+def later_state(state):
+    """The t = 0 state carried into t = 1 as `train` carries it: the kNN
+    graph and the foreground-first reorder, then the extrapolation."""
+    from dynamic3dgaussians_tpu_torch.train import trainer as T
+    from dynamic3dgaussians_tpu_torch.train.config import TrainConfig
+    params, variables, opt_state = state
+    params, variables, opt_state = T.initialize_post_first_timestep(
+        params, variables, TrainConfig(), opt_state)
+    return T.initialize_per_timestep(params, variables, opt_state)
+
+
+def physics_ms(params, variables):
+    """ms of `physics_losses` and its gradient alone."""
+    from dynamic3dgaussians_tpu_torch.models import gaussians as G
+    from dynamic3dgaussians_tpu_torch.train import losses as L
+    leaves = {k: params[k].detach().requires_grad_(True)
+              for k in ("means3D", "unnorm_rotations", "rgb_colors")}
+
+    def run():
+        act = G.activated(dict(params, **leaves), variables["alive"])
+        out = L.physics_losses(act["means3d"], act["rotations"],
+                               leaves["rgb_colors"], variables,
+                               params["seg_colors"][:, 0] > 0.5,
+                               variables["alive"])
+        return torch.autograd.grad(sum(out.values()), list(leaves.values()))
+    return timed(run)[1]
+
+
+def train_stage_times(state, batch, k_slots, dev, is_initial=True):
     from dynamic3dgaussians_tpu_torch.models import gaussians as G
     from dynamic3dgaussians_tpu_torch.train import densify, optim
     from dynamic3dgaussians_tpu_torch.train import trainer as T
     from dynamic3dgaussians_tpu_torch.train.config import (RasterSettings,
                                                            TrainConfig)
     params, variables, opt_state = state
-    cfg = TrainConfig(num_timesteps=1, raster=RasterSettings(
-        max_tiles_per_gaussian=k_slots))
+    cfg = TrainConfig(num_timesteps=1 if is_initial else 2,
+                      raster=RasterSettings(max_tiles_per_gaussian=k_slots))
     rcfg = T.raster_config(cfg)
     lrs = {k: torch.tensor(cfg.lrs.get(k, 0.0), device=dev) for k in params}
     keys = list(params)
@@ -188,7 +220,7 @@ def train_stage_times(state, batch, k_slots, dev):
     probe = torch.zeros((variables["alive"].shape[0], 2), device=dev,
                         requires_grad=True)
     (loss, aux), times["loss"] = timed(lambda: T.compute_loss(
-        leaves, probe, batch, variables, is_initial=True, cfg=cfg,
+        leaves, probe, batch, variables, is_initial=is_initial, cfg=cfg,
         rcfg=rcfg))
     grads, times["backward"] = timed(lambda: torch.autograd.grad(
         loss, [leaves[k] for k in keys] + [probe], allow_unused=True))
@@ -205,10 +237,12 @@ def train_stage_times(state, batch, k_slots, dev):
     _, times["update"] = timed(update)
     step = T.make_train_step(cfg, rcfg)
     _, times["step"] = timed(lambda: step(params, opt_state, variables,
-                                          batch, lrs, True))
+                                          batch, lrs, is_initial))
+    if not is_initial:
+        times["physics"] = physics_ms(params, variables)
     times["n_dropped_rect"] = int(aux["n_dropped_rect"])
     return times, (lambda: step(params, opt_state, variables, batch, lrs,
-                                True))
+                                is_initial))
 
 
 def main(argv=None) -> int:
@@ -222,7 +256,7 @@ def main(argv=None) -> int:
         print("profile_frame: needs a CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda", torch.cuda.current_device())
-    smi = cs.smi_line()
+    smi = smi_line()
     if args.train_witness:
         scene = cs.bench_scene()
         for radius in (4.0, 6.0):
@@ -250,18 +284,20 @@ def main(argv=None) -> int:
 
     params_t, variables, opt_state, batch = train_setup(dev)
     state = (params_t, variables, opt_state)
-    for k_slots in (8, 64):
-        train_stage_times(state, batch, k_slots, dev)       # warm
-        runs = [train_stage_times(state, batch, k_slots, dev)[0]
+    later = later_state(state)
+    for k_slots, st, is_initial in ((8, state, True), (64, state, True),
+                                    (64, later, False)):
+        train_stage_times(st, batch, k_slots, dev, is_initial)   # warm
+        runs = [train_stage_times(st, batch, k_slots, dev, is_initial)[0]
                 for _ in range(args.reps)]
         stages = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
         print(json.dumps(dict(phase="train_stages", k_slots=k_slots,
-                              ms=stages, reps=args.reps, card=smi)),
-              flush=True)
-        _, step_fn = train_stage_times(state, batch, k_slots, dev)
+                              t="0" if is_initial else ">0", ms=stages,
+                              reps=args.reps, card=smi)), flush=True)
+        _, step_fn = train_stage_times(st, batch, k_slots, dev, is_initial)
         print(json.dumps(dict(phase="train_profile", k_slots=k_slots,
-                              card=smi, **profile_calls(step_fn,
-                                                        args.steps))),
+                              t="0" if is_initial else ">0", card=smi,
+                              **profile_calls(step_fn, args.steps))),
               flush=True)
     return 0
 

@@ -14,7 +14,10 @@ forward kernel K1: channel rows atol 1e-4, depth row and log2 transmittance
 kernel K2: per gradient row, |kernel - plain| <= 1e-3 |plain| + 1e-4 x the
 row's largest magnitude -- the kernel sums the tile's pixels in a shuffle
 tree and the suffix sequentially, the plain version with torch.sum and
-cumsum, so float32 sums of up to 256 x 128 terms are reassociated.
+cumsum, so float32 sums of up to 256 x 128 terms are reassociated. Of
+the probe kernel K3: 1e-5 relative on each walk's scalar for the compute
+variants (the same cell pipeline; the scan and the sums over 256 pixels in
+another order) and 1e-6 for dma_only (sums of 4096 values per block).
 """
 
 import numpy as np
@@ -25,6 +28,7 @@ from dynamic3dgaussians_tpu_torch.ops import camera as tcam
 from dynamic3dgaussians_tpu_torch.ops import rasterize as trast
 from dynamic3dgaussians_tpu_torch.ops.cuda import raster_bwd as K2
 from dynamic3dgaussians_tpu_torch.ops.cuda import raster_fwd as K1
+from dynamic3dgaussians_tpu_torch.ops.cuda import sol_probe as K3
 from test_torch_cases import CASES, kernel_kw, record_table
 
 pytestmark = pytest.mark.gpu
@@ -205,3 +209,24 @@ def test_cuda_train_step(cuda_device):
     assert float((new_params["rgb_colors"] - params["rgb_colors"].detach())
                  .abs().max()) > 0
     assert float(new_vars["denom"].sum()) > 0
+
+
+@pytest.mark.parametrize("kind", K3.KINDS)
+def test_cuda_sol_probe_matches_plain(cuda_device, kind):
+    """K3 over a batch of walks (8 blocks each) against its plain version:
+    each walk's two parts on their own, |kernel - plain| <= rtol |plain| +
+    atol, with rtol 1e-5 (compute variants) or 1e-6 (dma_only), atol 1e-3
+    on the acc part and 1e-2 on the value corner (sums that may cancel)."""
+    from dynamic3dgaussians_tpu_torch.tools.bench_sol import card_table
+    rec = card_table(6, 8, cuda_device, seed=2)
+    before = K3.sol_probe.launches
+    k = K3.sol_probe(rec, kind)
+    torch.cuda.synchronize()
+    assert K3.sol_probe.launches == before + 1
+    p = K3.sol_probe_torch(rec, kind)
+    assert k.shape == p.shape == (6, 2)
+    assert torch.isfinite(k).all()
+    rtol = 1e-6 if kind == "dma_only" else 1e-5
+    atol = torch.tensor([0.0, 1e-2] if kind == "dma_only" else [1e-3, 0.0],
+                        device=cuda_device)
+    assert bool(((k - p).abs() <= rtol * p.abs() + atol).all()), (k, p)

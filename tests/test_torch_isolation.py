@@ -66,7 +66,8 @@ def test_port_imports_no_jax():
                 "train.optim", "train.densify", "train.config",
                 "train.trainer", "data.dataset", "data.synthetic",
                 "utils.logging", "viz.render", "viz.export", "cli",
-                "convert", "_build"):
+                "convert", "_build", "ops.cuda.sol_probe",
+                "tools.bench_sol"):
         assert f"dynamic3dgaussians_tpu_torch.{mod}" in names
     assert int(count) == len(names)
 
@@ -88,7 +89,7 @@ def _tiny():
 
 @pytest.mark.parametrize("entry", ["resolve_device", "render",
                                    "render_frame", "orbit_render", "cli",
-                                   "cli_train", "train"])
+                                   "cli_train", "train", "bench_sol"])
 def test_no_device_without_cuda_raises(monkeypatch, tmp_path, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     params, cam = _tiny()
@@ -107,6 +108,9 @@ def test_no_device_without_cuda_raises(monkeypatch, tmp_path, entry):
             path = texp.save_params([params], str(tmp_path))
             cli.main(["visualize", "--params", path, "--frames", "1",
                       "--width", "32", "--height", "32"])
+        elif entry == "bench_sol":
+            from dynamic3dgaussians_tpu_torch.tools import bench_sol
+            bench_sol.main(["--small"])
         elif entry == "cli_train":
             cli.main(["train", "--synthetic", "--timesteps", "1",
                       "--iters_first", "1", "--output", str(tmp_path)])
