@@ -5,17 +5,21 @@
 
 Builds the port's CUDA kernels from `dynamic3dgaussians_tpu_torch/csrc/`,
 holds each kernel against its plain PyTorch version at the shapes the main
-paths give it (K1 forward, K2 backward, K3 the speed-of-light probe at the
-bench shape, one walk and card-wide), holds the kernel path's render
-gradients against the frozen golden fixtures, drives the three main paths
-at full width -- `cli visualize` on a 200k-gaussian, 3-timestep checkpoint
-at 640x360; `cli train` over 3 timesteps of a 200k scene seen by 4 cameras
-at 640x360 (30 steps at t = 0, 10 at each later one), timing its steps and
-the PSNR of every view before and after each timestep; and the probe's
-entry point `tools/bench_sol.py` -- and checks that each went through its
-kernels. Prints one JSON object per phase; the last line is
-`{"ok": true, "device": {...}}`. Any failure propagates and exits non-zero,
-as does a machine without CUDA. Imports nothing of JAX.
+paths give it (K1 forward and K2 backward on two full-width tables, the
+bench view and a stopping table on which most tiles stop early, at CV 8
+and 40, K2 twice for a bitwise repeat; K3 the speed-of-light probe at the
+bench shape, one walk and card-wide), counts the cells and (warp, record)
+pairs the tile kernels walk, find live and keep after their footprint
+cull, holds the kernel path's render gradients against the frozen golden
+fixtures, drives the three main paths at full width -- `cli visualize` on
+a 200k-gaussian, 3-timestep checkpoint at 640x360; `cli train` over 3
+timesteps of a 200k scene seen by 4 cameras at 640x360 (30 steps at t = 0,
+10 at each later one), timing its steps and the PSNR of every view before
+and after each timestep; and the probe's entry point `tools/bench_sol.py`
+-- and checks that each went through its kernels. Prints one JSON object
+per phase; the last line is `{"ok": true, "device": {...}}`. Any failure
+propagates and exits non-zero, as does a machine without CUDA. Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -47,9 +51,10 @@ ATOL_LOGT = 1e-3     # log2 transmittance
 NACT_EQUAL_MIN = 0.999
 # K2 against its plain version, per gradient row: |kernel - plain| <=
 # RTOL_BWD |plain| + ROW_ATOL_BWD * (the row's largest |plain|). The kernel
-# sums a tile's 256 pixels in a shuffle tree and each pixel's suffix
-# sequentially; the plain version uses torch.sum and cumsum: float32 sums
-# of up to 256 x (records walked) terms, reassociated.
+# sums a tile's 256 pixels by warp (a reduce-scatter) then over warps, each
+# pixel's suffix sequentially, and divides by 1 - alpha within 2 ulp; the
+# plain version uses torch.sum and cumsum: float32 sums of up to 256 x
+# (records walked) terms, reassociated.
 RTOL_BWD = 1e-3
 ROW_ATOL_BWD = 1e-4
 # kernel-path render gradients against the frozen fixtures: the CPU row of
@@ -83,13 +88,14 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def bench_scene(seed=0, n=N_GAUSS):
-    """The JAX bench's scene statistics (bench.py): small, mostly opaque."""
+def bench_scene(seed=0, n=N_GAUSS, scales=(0.004, 0.015), opac=(0.5, 0.99)):
+    """The JAX bench's scene statistics (bench.py): small, mostly opaque.
+    `stop_scene` draws larger, more opaque splats from the same seed."""
     rng = np.random.RandomState(seed)
     means = rng.uniform(-2.0, 2.0, (n, 3)).astype(np.float32)
     colors = rng.uniform(0, 1, (n, 3)).astype(np.float32)
-    opac = rng.uniform(0.5, 0.99, (n,)).astype(np.float32)
-    scales = rng.uniform(0.004, 0.015, (n, 3)).astype(np.float32)
+    opac = rng.uniform(*opac, (n,)).astype(np.float32)
+    scales = rng.uniform(*scales, (n, 3)).astype(np.float32)
     quats = rng.normal(size=(n, 4)).astype(np.float32)
     quats /= np.linalg.norm(quats, axis=-1, keepdims=True)
     seg = (rng.uniform(0, 1, (n,)) > 0.5).astype(np.float32)
@@ -97,6 +103,21 @@ def bench_scene(seed=0, n=N_GAUSS):
     feats = rng.uniform(0, 1, (n, 32)).astype(np.float32)
     return dict(means=means, colors=colors, opac=opac, scales=scales,
                 quats=quats, seg_colors=seg_colors, feats=feats)
+
+
+# The stopping table: the bench view of the bench scene's draws with splats
+# 3-5x larger and opacity 0.9-0.99, K = 16 emission slots (no tile rect
+# cut). Most tiles stop before their last chunk and about a third of the
+# walked cells pass the gate (bench view: no tile stops, 7 % live).
+STOP_SCALES = (0.02, 0.05)
+STOP_OPAC = (0.9, 0.99)
+STOP_K = 16
+STOP_MIN_STOPPED = 0.5     # share of the tiles that stop early, at least
+STOP_MIN_LIVE = 0.30       # share of the walked cells that are live
+
+
+def stop_scene():
+    return bench_scene(scales=STOP_SCALES, opac=STOP_OPAC)
 
 
 def ptxas_summary(report: str):
@@ -117,11 +138,18 @@ def ptxas_summary(report: str):
 
 
 def cell_counts(rec_t, starts, counts, n_active):
-    """Cells (record x pixel) the tile kernels walk on these inputs, and
-    those among them that pass the 1/255 gate."""
+    """Cells (record x pixel) the tile kernels walk on these inputs, those
+    among them that pass the 1/255 gate, and the same for (warp, record)
+    pairs: the pairs walked (each in-segment record of a processed chunk
+    times the tile's warps), those with a live lane, and those the kernels'
+    footprint cull keeps (`footprint_boxes` against each warp's pixel
+    rectangle, `warp_pixel_map`). A live pair the cull would drop is
+    counted in `pairs_live_culled`, which must be 0."""
     import torch
     from dynamic3dgaussians_tpu_torch.ops.compositing import ALPHA_EPS, \
         ALPHA_MAX
+    from dynamic3dgaussians_tpu_torch.ops.cuda.raster_fwd import (
+        footprint_boxes, warp_pixel_map)
     p = TILE * TILE
     grid_w = -(-W // TILE)
     s = starts.long()
@@ -132,13 +160,22 @@ def cell_counts(rec_t, starts, counts, n_active):
     walked = torch.where(nact > 0, walked, torch.zeros_like(walked))
     walked_cells = int(walked.sum()) * p
 
-    # cells passing the 1/255 gate among the walked ones
     dev = rec_t.device
-    tile = torch.arange(s.shape[0], device=dev)
-    lin = torch.arange(p, device=dev)
-    px = ((tile % grid_w) * TILE)[:, None].float() + (lin % TILE).float()
-    py = ((tile // grid_w) * TILE)[:, None].float() + (lin // TILE).float()
-    live_cells = 0
+    n_tiles = s.shape[0]
+    # pixels in kernel-thread order: warp i holds positions 32 i .. 32 i + 31
+    order = warp_pixel_map(TILE, TILE).to(dev)
+    nwarps = p // 32
+    tile = torch.arange(n_tiles, device=dev)
+    lin = order
+    ox = ((tile % grid_w) * TILE).float()
+    oy = ((tile // grid_w) * TILE).float()
+    px = ox[:, None] + (lin % TILE).float()
+    py = oy[:, None] + (lin // TILE).float()
+    wpx, wpy = px.reshape(n_tiles, nwarps, 32), py.reshape(n_tiles, nwarps, 32)
+    rect = torch.stack([wpx.amin(2), wpx.amax(2), wpy.amin(2),
+                        wpy.amax(2)])                       # (4, T, nwarps)
+    boxes = footprint_boxes(rec_t)
+    live_cells = pairs_live = pairs_kept = pairs_bad = 0
     lane = torch.arange(CHUNK, device=dev)
     base = s - shift
     for k in range(int(nact.max())):
@@ -147,15 +184,29 @@ def cell_counts(rec_t, starts, counts, n_active):
         g = rec_t[:6, idx]
         ok = ((lane >= (shift - k * CHUNK)[:, None])
               & (lane < (shift + c - k * CHUNK)[:, None])
-              & (k < nact)[:, None])
+              & (k < nact)[:, None])                       # (T, G)
         dx = g[0][:, None, :] - px[:, :, None]
         dy = g[1][:, None, :] - py[:, :, None]
         power = torch.clamp(-0.5 * (g[2][:, None] * dx * dx
                                     + g[4][:, None] * dy * dy)
                             - g[3][:, None] * dx * dy, max=0.0)
         alpha = torch.clamp(g[5][:, None] * torch.exp2(power), max=ALPHA_MAX)
-        live_cells += int(((alpha >= ALPHA_EPS) & ok[:, None, :]).sum())
+        live = (alpha >= ALPHA_EPS) & ok[:, None, :]      # (T, P, G)
+        live_cells += int(live.sum())
+        live_pair = live.reshape(n_tiles, nwarps, 32, CHUNK).any(2)
+        b = boxes[:, idx]                                  # (4, T, G)
+        keep = ~((b[1][:, None] < rect[0][..., None])
+                 | (b[0][:, None] > rect[1][..., None])
+                 | (b[3][:, None] < rect[2][..., None])
+                 | (b[2][:, None] > rect[3][..., None])) & ok[:, None, :]
+        pairs_live += int(live_pair.sum())
+        pairs_kept += int(keep.sum())
+        pairs_bad += int((live_pair & ~keep).sum())
+        del dx, dy, power, alpha, live
     return dict(walked_cells=walked_cells, live_cells=live_cells,
+                pairs_walked=int(walked.sum()) * nwarps,
+                pairs_live=pairs_live, pairs_kept=pairs_kept,
+                pairs_live_culled=pairs_bad,
                 walked_records_max_tile=int(walked.max()),
                 walked_records_mean_tile=float(walked.float().mean()))
 
@@ -167,46 +218,66 @@ def bound(flops, bytes_):
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
+def cell_work(cells):
+    """Operations the tile walk needs before the live cells' own work, on
+    these inputs: each walked record's footprint box (~30 float32
+    operations, once per tile), each walked (warp, record) pair's box
+    test (4 compares) and, for each pair the test keeps, the alpha chain
+    and gate on its 32 cells (16 operations: 2 sub, 5 quad, 5 power incl.
+    min, exp2, mul, min, compare; a transcendental counts as one). The
+    gate's result is the same on the cells of the pairs the test drops, so
+    the data needs no more. `all_cells` is the same work with the chain on
+    every walked cell, the bound of earlier versions, kept beside it."""
+    nwarps = TILE * TILE // 32
+    head = cells["pairs_walked"] // nwarps * 30 + cells["pairs_walked"] * 4
+    return dict(kept=head + cells["pairs_kept"] * 32 * 16,
+                all_cells=cells["walked_cells"] * 16)
+
+
 def k1_work(cells, rec_t, n_tiles, n_val):
     """Operations and bytes K1 needs on these inputs (for the bound).
 
-    Every record walked (in-segment, in a processed chunk) costs each of the
-    tile's P pixels the alpha chain and its gate: 16 float32 operations
-    (2 sub, 5 quad, 5 power incl. min, exp2, mul, min, compare). A cell that
-    passes the gate adds 1-alpha, log2, add, exp2, mul, the running-sum add
-    and CV multiply-adds: 6 + 2*CV. Transcendentals count as one operation,
-    so this is a lower bound. Bytes: the table read once, the outputs
+    The tile walk (`cell_work`), then per cell that passes the gate:
+    1-alpha, log2, add, exp2, mul, the running-sum add and CV
+    multiply-adds, 6 + 2*CV. Bytes: the table read once, the outputs
     written once.
     """
     p = TILE * TILE
-    flops = cells["walked_cells"] * 16 + cells["live_cells"] * (6 + 2 * n_val)
+    live = cells["live_cells"] * (6 + 2 * n_val)
+    walk = cell_work(cells)
     bytes_ = (rec_t.numel() * 4 + 2 * n_tiles * 4
               + n_tiles * p * (n_val + 1) * 4 + n_tiles * 4)
-    return bound(flops, bytes_)
+    out = bound(walk["kept"] + live, bytes_)
+    out["bound_ms_all_cells"] = bound(walk["all_cells"] + live,
+                                      bytes_)["bound_ms"]
+    return out
 
 
 def k2_work(cells, rec_t, n_tiles, n_val):
     """Operations and bytes K2 needs on these inputs (for the bound).
 
-    Every walked cell costs the alpha chain and gate, 16 operations, as in
-    K1. A live cell adds: 1-alpha, log2, the log_t step, exp2, w (5); dw,
-    CV multiply-adds (2 CV); d_alpha and the suffix update (5); the clamp
-    and power masks (4); the six geometry terms (17); the CV value terms
-    d_acc * w (CV); and one add per term into the sums over the tile's
-    pixels (6 + CV): 37 + 4 CV in all. Bytes: the table, d_raw, log_t and
-    the three per-tile ints read once, d_out written once.
+    The tile walk (`cell_work`), then per live cell: 1-alpha, log2, the
+    log_t step, exp2, w (5); dw, CV multiply-adds (2 CV); d_alpha and the
+    suffix update (5); the clamp and power masks (4); the six geometry
+    terms (17); the CV value terms d_acc * w (CV); and one add per term
+    into the sums over the tile's pixels (6 + CV): 37 + 4 CV in all.
+    Bytes: the table, d_raw, log_t and the three per-tile ints read once,
+    d_out written once.
     """
     p = TILE * TILE
-    flops = (cells["walked_cells"] * 16
-             + cells["live_cells"] * (37 + 4 * n_val))
+    live = cells["live_cells"] * (37 + 4 * n_val)
+    walk = cell_work(cells)
     bytes_ = (rec_t.numel() * 4 + n_tiles * p * (n_val + 1) * 4
               + 3 * n_tiles * 4 + rec_t.numel() * 4)
-    return bound(flops, bytes_)
+    out = bound(walk["kept"] + live, bytes_)
+    out["bound_ms_all_cells"] = bound(walk["all_cells"] + live,
+                                      bytes_)["bound_ms"]
+    return out
 
 
-def bench_records(scene, extra_key, device):
+def bench_records(scene, extra_key, device, k=8):
     """The bench view's record table (640x360, f = 500, z = 6) at
-    CV = 3 + extra + 2, rounded up to 8."""
+    CV = 3 + extra + 2, rounded up to 8, with K = `k` emission slots."""
     import torch
     from dynamic3dgaussians_tpu_torch.ops.camera import make_camera
     from dynamic3dgaussians_tpu_torch.ops.projection import project
@@ -222,7 +293,8 @@ def bench_records(scene, extra_key, device):
         proj = project(t["means"], t["scales"], t["quats"], cam)
         op = torch.where(proj.valid, t["opac"], torch.zeros_like(t["opac"]))
         chans = torch.cat([t["colors"], t[extra_key]], dim=-1)
-        rec_t, starts, counts, drops = sorted_records(H, W, proj, chans, op)
+        rec_t, starts, counts, drops = sorted_records(
+            H, W, proj, chans, op, max_tiles_per_gaussian=k)
     if int(drops) != 0:
         raise AssertionError(f"n_dropped_rect = {int(drops)} on the bench "
                              f"view; the comparison needs a lossless table")
@@ -231,15 +303,41 @@ def bench_records(scene, extra_key, device):
     return rec_t, starts, counts, chans.shape[1], kw
 
 
-def phase_k1(scene, extra_key, device, smi):
-    """K1 against its plain version at full width on the bench view."""
+TABLES = {"bench": (bench_scene, 8), "stop": (stop_scene, STOP_K)}
+
+
+def table_stats(table, rec_t, starts, counts, n_active):
+    """`cell_counts` of a table, with the share of tiles that stop before
+    their last chunk. Fails if the cull drops a live (warp, record) pair,
+    or if the stopping table does not stop or is not live enough."""
+    cells = cell_counts(rec_t, starts, counts, n_active)
+    s, c = starts.long(), counts.long()
+    n_chunks = (s % CHUNK + c + CHUNK - 1) // CHUNK
+    nact = n_active.reshape(-1).long()
+    stopped = float(((c > 0) & (nact < n_chunks)).float().mean())
+    live = cells["live_cells"] / max(cells["walked_cells"], 1)
+    stats = dict(cells, stopped_tile_share=stopped, live_cell_share=live)
+    if cells["pairs_live_culled"]:
+        raise AssertionError(f"the footprint cull drops live (warp, record) "
+                             f"pairs on the {table} table: {stats}")
+    if table == "stop" and (stopped < STOP_MIN_STOPPED
+                            or live < STOP_MIN_LIVE):
+        raise AssertionError(f"the stopping table stops {stopped:.3f} of its "
+                             f"tiles and has {live:.3f} live cells")
+    return stats
+
+
+def phase_k1(table, extra_key, device, smi):
+    """K1 against its plain version at full width on `table` ("bench": the
+    bench view; "stop": the stopping table)."""
     import torch
     from dynamic3dgaussians_tpu_torch.ops.cuda.raster_fwd import (
         composite_tiles, composite_tiles_torch)
     from dynamic3dgaussians_tpu_torch.tools.bench_sol import cuda_ms
 
-    rec_t, starts, counts, n_chan, kw = bench_records(scene, extra_key,
-                                                      device)
+    make, k_slots = TABLES[table]
+    rec_t, starts, counts, n_chan, kw = bench_records(make(), extra_key,
+                                                      device, k=k_slots)
     n_val = rec_t.shape[0] - 8
     raw_k, logt_k, nact_k = composite_tiles(rec_t, starts, counts, **kw)
     torch.cuda.synchronize()
@@ -268,25 +366,28 @@ def phase_k1(scene, extra_key, device, smi):
 
     ms, _ = cuda_ms(run_k, iters=50, warmup=2)
     plain_ms, _ = cuda_ms(run_p, iters=3)
-    cells = cell_counts(rec_t, starts, counts, nact_k)
+    cells = table_stats(table, rec_t, starts, counts, nact_k)
     work = dict(cells, **k1_work(cells, rec_t, starts.shape[0], n_val))
-    rec = dict(phase="k1_vs_plain", cv=n_val, extra=extra_key,
-               n_pairs=int(counts.sum()), ne_pad=rec_t.shape[1],
-               n_dropped_rect=0, err_chan=err_chan,
+    rec = dict(phase="k1_vs_plain", table=table, cv=n_val, extra=extra_key,
+               k_slots=k_slots, n_pairs=int(counts.sum()),
+               ne_pad=rec_t.shape[1], n_dropped_rect=0, err_chan=err_chan,
                err_depth=err_depth, err_logt=err_logt,
                n_active_equal=nact_equal, n_active_maxdiff=nact_maxdiff,
                tol=dict(chan=ATOL_CHAN, depth=ATOL_DEPTH, log_t=ATOL_LOGT,
                         n_active_equal=NACT_EQUAL_MIN),
-               ms=ms, plain_ms=plain_ms, card=smi, **work)
+               ms=ms, plain_ms=plain_ms,
+               ns_per_walked_cell=ms * 1e6 / cells["walked_cells"],
+               card=smi, **work)
     emit(rec)
     if not ok:
         raise AssertionError(f"K1 disagrees with its plain version: {rec}")
     return rec
 
 
-def phase_k2(scene, extra_key, device, smi):
-    """K2 against its plain version at full width on the bench view, on
-    K1's real outputs and a seeded cotangent."""
+def phase_k2(table, extra_key, device, smi):
+    """K2 against its plain version at full width on `table`, on K1's real
+    outputs and a seeded cotangent; a second launch must give bitwise the
+    same d_out."""
     import torch
     from dynamic3dgaussians_tpu_torch.ops.cuda.raster_bwd import (
         composite_tiles_bwd, composite_tiles_bwd_torch)
@@ -294,14 +395,19 @@ def phase_k2(scene, extra_key, device, smi):
         composite_tiles
     from dynamic3dgaussians_tpu_torch.tools.bench_sol import cuda_ms
 
-    rec_t, starts, counts, _, kw = bench_records(scene, extra_key, device)
+    make, k_slots = TABLES[table]
+    rec_t, starts, counts, _, kw = bench_records(make(), extra_key, device,
+                                                 k=k_slots)
     n_val = rec_t.shape[0] - 8
     raw, log_t, n_active = composite_tiles(rec_t, starts, counts, **kw)
     d_raw = torch.as_tensor(np.random.RandomState(3).normal(
         size=tuple(raw.shape)).astype(np.float32), device=device)
     args = (rec_t, starts, counts, n_active.reshape(-1), log_t, d_raw)
     out_k = composite_tiles_bwd(*args, **kw)
+    out_k2 = composite_tiles_bwd(*args, **kw)
     torch.cuda.synchronize()
+    repeat_equal = bool(torch.equal(out_k, out_k2))
+    del out_k2
     out_p = composite_tiles_bwd_torch(*args, **kw)
     torch.cuda.synchronize()
     if not bool(torch.isfinite(out_k).all()):
@@ -315,7 +421,7 @@ def phase_k2(scene, extra_key, device, smi):
     err_row = float(((k - p).abs() / scale).max())
     outside = max(float(out_k[6:8].abs().max()),
                   float(out_k[:, n_live:].abs().max()))
-    ok = float(excess.max()) <= 0.0 and outside == 0.0
+    ok = float(excess.max()) <= 0.0 and outside == 0.0 and repeat_equal
 
     def run_k():
         composite_tiles_bwd(*args, **kw)
@@ -325,17 +431,21 @@ def phase_k2(scene, extra_key, device, smi):
 
     ms, _ = cuda_ms(run_k, iters=20, warmup=2)
     plain_ms, _ = cuda_ms(run_p, iters=2)
-    cells = cell_counts(rec_t, starts, counts, n_active)
+    cells = table_stats(table, rec_t, starts, counts, n_active)
     work = dict(cells, **k2_work(cells, rec_t, starts.shape[0], n_val))
-    rec = dict(phase="k2_vs_plain", cv=n_val, extra=extra_key,
-               n_pairs=n_live, ne_pad=rec_t.shape[1], err_abs=err_abs,
-               err_rel_to_row_max=err_row, outside_segments_max=outside,
+    rec = dict(phase="k2_vs_plain", table=table, cv=n_val, extra=extra_key,
+               k_slots=k_slots, n_pairs=n_live, ne_pad=rec_t.shape[1],
+               err_abs=err_abs, err_rel_to_row_max=err_row,
+               outside_segments_max=outside, repeat_bitwise_equal=repeat_equal,
                grad_row_max=[float(x) for x in scale.reshape(-1)[:6]],
                tol=dict(rtol=RTOL_BWD, row_atol=ROW_ATOL_BWD),
-               ms=ms, plain_ms=plain_ms, card=smi, **work)
+               ms=ms, plain_ms=plain_ms,
+               ns_per_walked_cell=ms * 1e6 / cells["walked_cells"],
+               card=smi, **work)
     emit(rec)
     if not ok:
-        raise AssertionError(f"K2 disagrees with its plain version: {rec}")
+        raise AssertionError(f"K2 disagrees with its plain version or with "
+                             f"itself: {rec}")
     return rec
 
 
@@ -943,21 +1053,24 @@ def main() -> int:
               library=os.path.relpath(lib_path, REPO),
               fresh=bool(report), ptxas=ptxas_summary(report)))
 
-    scene = bench_scene()
     k1, k2 = {}, {}
-    for extra_key in ("seg_colors", "feats"):
-        rec = phase_k1(scene, extra_key, device, smi)
-        k1[rec["cv"]] = rec
-    for extra_key in ("seg_colors", "feats"):
-        rec = phase_k2(scene, extra_key, device, smi)
-        k2[rec["cv"]] = rec
+    for table in TABLES:
+        for extra_key in ("seg_colors", "feats"):
+            rec = phase_k1(table, extra_key, device, smi)
+            k1[table, rec["cv"]] = rec
+    for table in TABLES:
+        for extra_key in ("seg_colors", "feats"):
+            rec = phase_k2(table, extra_key, device, smi)
+            k2[table, rec["cv"]] = rec
+    scene = bench_scene()
     k3 = phase_k3(device, smi)
     phase_oracle(device)
     phase_grad_golden(device)
     view_rec = phase_main_path(scene, device, smi)
     train_rec = phase_train_main_path(scene, device, smi)
     probe_rec = phase_probe_main_path(k3, device, smi)
-    floor_rec(k1[8], k2[8], k3, train_rec["launches"], smi)
+    b1, b2 = k1["bench", 8], k2["bench", 8]
+    floor_rec(b1, b2, k3, train_rec["launches"], smi)
 
     # both render paths pass RGB + 3 seg channels: CV = 8
     paths = (("visualize", view_rec), ("train", train_rec),
@@ -971,18 +1084,18 @@ def main() -> int:
              replaces="dynamic3dgaussians_tpu/ops/pallas/raster_fwd.py:419",
              launches=train_rec["launches"]["raster_fwd"],
              launches_by_path=by_path["raster_fwd"],
-             max_abs_err=max(k1[8]["err_chan"], k1[8]["err_depth"]),
-             ms=k1[8]["ms"], plain_ms=k1[8]["plain_ms"],
-             bound_ms=k1[8]["bound_ms"], bound_by=k1[8]["bound_by"],
+             max_abs_err=max(b1["err_chan"], b1["err_depth"]),
+             ms=b1["ms"], plain_ms=b1["plain_ms"],
+             bound_ms=b1["bound_ms"], bound_by=b1["bound_by"],
              library_ms=None),
         dict(name="raster_bwd", route="cuda",
              source="dynamic3dgaussians_tpu_torch/csrc/raster_bwd.cu",
              replaces="dynamic3dgaussians_tpu/ops/pallas/raster_bwd.py:271",
              launches=train_rec["launches"]["raster_bwd"],
              launches_by_path=by_path["raster_bwd"],
-             max_abs_err=k2[8]["err_abs"], ms=k2[8]["ms"],
-             plain_ms=k2[8]["plain_ms"], bound_ms=k2[8]["bound_ms"],
-             bound_by=k2[8]["bound_by"], library_ms=None),
+             max_abs_err=b2["err_abs"], ms=b2["ms"],
+             plain_ms=b2["plain_ms"], bound_ms=b2["bound_ms"],
+             bound_by=b2["bound_by"], library_ms=None),
         # the card-wide stream_compute call: every block streamed and run
         # through the cell pipeline, B walks
         dict(name="sol_probe", route="cuda",

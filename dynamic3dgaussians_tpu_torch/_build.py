@@ -113,7 +113,7 @@ def load_library() -> ctypes.CDLL:
                                    i32, vp, vp, vp, vp]
     lib.d3g_raster_fwd.restype = i32
     lib.d3g_raster_bwd.argtypes = [vp, i64, i32, vp, vp, vp, vp, vp, i32, i32,
-                                   i32, i32, i32, vp, vp]
+                                   i32, i32, i32, vp, vp, vp]
     lib.d3g_raster_bwd.restype = i32
     lib.d3g_sol_probe.argtypes = [vp, i64, i32, i32, vp, vp]
     lib.d3g_sol_probe.restype = i32

@@ -15,6 +15,8 @@
 
 #pragma once
 
+#include <stdint.h>
+
 namespace d3g {
 
 constexpr int GEOM_ROWS = 8;
@@ -58,6 +60,169 @@ __device__ __forceinline__ bool alpha_live(const AlphaCell& c) {
 // log2(1 - alpha), the cell's step of log2 transmittance.
 __device__ __forceinline__ float log2_one_minus(float alpha) {
   return log2f(__fsub_rn(1.0f, alpha));
+}
+
+// ---------------------------------------------------------------------------
+// The tile walk shared by K1 and K2: the footprint cull, the thread-to-pixel
+// map and the asynchronous chunk staging.
+
+constexpr unsigned FULL_MASK = 0xffffffffu;
+
+// Conservative box [x_lo, x_hi] x [y_lo, y_hi] of the pixel centres at which
+// a record can pass the 1/255 gate. A cell is live iff op * 2^p0 >= EPS with
+// p0 = -Q/2, Q = a dx^2 + 2 b dx dy + c dy^2, i.e. iff Q <= 2 L, L =
+// log2(op / EPS); on that ellipse |dx| <= sqrt(2L c / det) and |dy| <=
+// sqrt(2L a / det), det = a c - b^2. The margins cover the rounding of the
+// kernels' alpha chain: 2L is raised by 1e-5 and by a relative 64 u a c / det
+// (u = 2^-24; the chain's rounding error of p0 is at most ~16 u (a c / det) Q
+// for a positive definite conic), det is taken from below, and each extent
+// gets 1e-4 relative and 0.01 px. op < EPS is dead at every pixel (raw = op
+// * e with e <= 1): an empty box. A conic that is not positive definite, or
+// anything NaN or infinite, gets an unbounded box (never culled). Mirrored
+// in Python by ops/cuda/raster_fwd.py::footprint_boxes.
+struct Box {
+  float x_lo, x_hi, y_lo, y_hi;
+};
+
+__device__ __forceinline__ Box record_box(float x, float y, float a, float b,
+                                          float c, float op) {
+  const float inf = __int_as_float(0x7f800000);
+  if (op < ALPHA_EPS) return Box{inf, -inf, inf, -inf};
+  const float ac = __fmul_rn(a, c);
+  // det from below: a c (1 - 2^-20) - b^2 (1 + 2^-20)
+  const float det =
+      __fsub_rn(__fmul_rn(ac, 0.99999904632568359375f),
+                __fmul_rn(__fmul_rn(b, b), 1.00000095367431640625f));
+  const float l2 = __fmul_rn(2.0f, log2f(__fdiv_rn(op, ALPHA_EPS)));
+  // (2 L + 1e-5)(1 + 1e-5 + 2^-18 a c / det)
+  const float q = __fmul_rn(
+      __fadd_rn(l2, 1e-5f),
+      __fadd_rn(1.0f + 1e-5f,
+                __fmul_rn(3.814697265625e-06f, __fdiv_rn(ac, det))));
+  if (!(a > 0.0f && c > 0.0f && det > 0.0f && q < inf))
+    return Box{-inf, inf, -inf, inf};
+  const float rx = __fadd_rn(
+      __fmul_rn(__fsqrt_rn(__fdiv_rn(__fmul_rn(q, c), det)), 1.0001f), 0.01f);
+  const float ry = __fadd_rn(
+      __fmul_rn(__fsqrt_rn(__fdiv_rn(__fmul_rn(q, a), det)), 1.0001f), 0.01f);
+  return Box{__fsub_rn(x, rx), __fadd_rn(x, rx), __fsub_rn(y, ry),
+             __fadd_rn(y, ry)};
+}
+
+// A warp's pixel rectangle [x0, x1] x [y0, y1] (pixel centres).
+struct Rect {
+  float x0, x1, y0, y1;
+};
+
+// false only if the box misses the rectangle (NaN bounds never miss).
+__device__ __forceinline__ bool box_hits(const Box& b, const Rect& r) {
+  return !(b.x_hi < r.x0 || b.x_lo > r.x1 || b.y_hi < r.y0 || b.y_lo > r.y1);
+}
+
+// The box rows kept beside a staged chunk: x_lo, x_hi, y_lo, y_hi.
+__device__ __forceinline__ void store_box(float* box, int chunk, int j,
+                                          const Box& b) {
+  box[0 * chunk + j] = b.x_lo;
+  box[1 * chunk + j] = b.x_hi;
+  box[2 * chunk + j] = b.y_lo;
+  box[3 * chunk + j] = b.y_hi;
+}
+
+__device__ __forceinline__ Box load_box(const float* box, int chunk, int j) {
+  return Box{box[0 * chunk + j], box[1 * chunk + j], box[2 * chunk + j],
+             box[3 * chunk + j]};
+}
+
+// The box of record `j` of the table column block starting at `src`, read
+// from device memory (the geometry rows of the record table).
+__device__ __forceinline__ Box table_box(const float* __restrict__ src,
+                                         int64_t ne_pad, int j) {
+  return record_box(src[j], src[ne_pad + j], src[2 * ne_pad + j],
+                    src[3 * ne_pad + j], src[4 * ne_pad + j],
+                    src[5 * ne_pad + j]);
+}
+
+// Tile-local pixel (lx, ly) of thread `tid`. When the tile splits into 8x4
+// blocks, each warp takes one block (lanes row-major inside it, blocks
+// row-major over the tile): a record's footprint meets fewer warps than
+// with the row-major map, which stays for other tile shapes. Mirrored by
+// ops/cuda/raster_fwd.py::warp_pixel_map.
+__device__ __forceinline__ void pixel_of_thread(int tid, int tile_h,
+                                                int tile_w, int& lx, int& ly) {
+  if (tile_w % 8 == 0 && tile_h % 4 == 0) {
+    const int warp = tid >> 5, lane = tid & 31;
+    const int per_row = tile_w >> 3;
+    const int wy = warp / per_row;
+    lx = (warp - wy * per_row) * 8 + (lane & 7);
+    ly = wy * 4 + (lane >> 3);
+  } else {
+    ly = tid / tile_w;
+    lx = tid - ly * tile_w;
+  }
+}
+
+// The rectangle spanned by the pixels of the lanes in `mask`.
+__device__ __forceinline__ Rect warp_rect(unsigned mask, int gx, int gy) {
+  return Rect{(float)__reduce_min_sync(mask, gx),
+              (float)__reduce_max_sync(mask, gx),
+              (float)__reduce_min_sync(mask, gy),
+              (float)__reduce_max_sync(mask, gy)};
+}
+
+// Asynchronous copy of one chunk of the table (rows x chunk floats starting
+// at column `col` of the (rows, ne_pad) table) into shared memory, 16 bytes
+// per copy when the rows are 16-byte aligned, else 4. Thread `tid` copies
+// elements tid, tid + nthreads, ... of the chunk; (r0, v0) is its first
+// (row, column vector) and (r_step, v_step) the stride, all computed once
+// per kernel, so the loop has no division. The caller commits and waits.
+struct Stager {
+  int per_row, r0, v0, r_step, v_step;
+  bool vec;
+};
+
+__device__ __forceinline__ Stager make_stager(const float* rec, int64_t ne_pad,
+                                              int chunk, int tid,
+                                              int nthreads) {
+  Stager s;
+  s.vec = ((reinterpret_cast<uintptr_t>(rec) & 15) == 0) &&
+          (ne_pad % 4 == 0) && (chunk % 4 == 0);
+  s.per_row = s.vec ? chunk >> 2 : chunk;
+  s.r0 = tid / s.per_row;
+  s.v0 = tid - s.r0 * s.per_row;
+  s.r_step = nthreads / s.per_row;
+  s.v_step = nthreads - s.r_step * s.per_row;
+  return s;
+}
+
+template <int ROWS>
+__device__ __forceinline__ void stage_chunk(const Stager& s, float* dst,
+                                            const float* __restrict__ rec,
+                                            int64_t ne_pad, int64_t col,
+                                            int chunk) {
+  int r = s.r0, v = s.v0;
+  while (r < ROWS) {
+    const float* g = rec + (int64_t)r * ne_pad + col;
+    float* d = dst + r * chunk;
+    const unsigned sa = static_cast<unsigned>(__cvta_generic_to_shared(
+        s.vec ? d + 4 * v : d + v));
+    if (s.vec)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(sa),
+                   "l"(g + 4 * v));
+    else
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(sa),
+                   "l"(g + v));
+    r += s.r_step;
+    v += s.v_step;
+    if (v >= s.per_row) {
+      v -= s.per_row;
+      ++r;
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 }  // namespace d3g

@@ -180,14 +180,15 @@ def composite_tiles_bwd(rec_t: torch.Tensor, tile_starts: torch.Tensor,
     lib = _build.load_library()
     d_out = torch.zeros((GEOM_ROWS + n_val, rec_t.shape[1]),
                         dtype=torch.float32, device=rec_t.device)
+    order = torch.empty((num_tiles,), dtype=torch.int32, device=rec_t.device)
     with torch.cuda.device(rec_t.device):
         stream = torch.cuda.current_stream(rec_t.device).cuda_stream
         err = lib.d3g_raster_bwd(
             rec_t.data_ptr(), rec_t.shape[1], rec_t.shape[0],
             tile_starts.data_ptr(), tile_counts.data_ptr(),
             n_active.data_ptr(), log_t.data_ptr(), d_raw.data_ptr(),
-            num_tiles, grid_w, tile_h, tile_w, chunk, d_out.data_ptr(),
-            stream)
+            num_tiles, grid_w, tile_h, tile_w, chunk, order.data_ptr(),
+            d_out.data_ptr(), stream)
     _build.check(lib, err, "raster_bwd kernel launch")
     composite_tiles_bwd.launches += 1
     return d_out

@@ -27,6 +27,7 @@ chunk 0 always runs, an empty tile processes 0 chunks.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from dynamic3dgaussians_tpu_torch.device import no_tf32
@@ -76,6 +77,51 @@ def tile_pixel_coords(num_tiles: int, grid_w: int, tile_h: int, tile_w: int,
           * tile_h)[:, None] + torch.div(lin, tile_w,
                                          rounding_mode="floor").to(f32)
     return px, py
+
+
+def footprint_boxes(rec_t: torch.Tensor) -> torch.Tensor:
+    """(4, NE_pad) float32 rows [x_lo, x_hi, y_lo, y_hi]: per record, a box
+    holding every pixel centre at which it can pass the 1/255 gate.
+
+    The kernels' footprint cull (`csrc/alpha.cuh::record_box`), in the same
+    float32 operations: with L = log2(op / EPS) and det = a c - b^2 taken
+    from below, half extents sqrt(q c / det) and sqrt(q a / det) for q =
+    (2 L + 1e-5)(1 + 1e-5 + 2^-18 a c / det), widened by 1e-4 relative and
+    0.01 px. op < EPS gives an empty box (dead at every pixel); a conic that
+    is not positive definite, or NaN or infinite inputs, an unbounded one.
+    """
+    f32 = np.float32
+    x, y, a, b, c, op = (rec_t[i] for i in range(6))
+    inf = torch.tensor(float("inf"), dtype=torch.float32, device=rec_t.device)
+    ac = a * c
+    det = ac * f32(1.0 - 2.0 ** -20) - (b * b) * f32(1.0 + 2.0 ** -20)
+    l2 = 2.0 * torch.log2(op / f32(ALPHA_EPS))
+    q = (l2 + f32(1e-5)) * ((f32(1.0) + f32(1e-5))
+                            + f32(2.0 ** -18) * (ac / det))
+    bounded = (a > 0) & (c > 0) & (det > 0) & (q < inf)
+    rx = torch.sqrt(q * c / det) * f32(1.0001) + f32(0.01)
+    ry = torch.sqrt(q * a / det) * f32(1.0001) + f32(0.01)
+    box = torch.stack([torch.where(bounded, x - rx, -inf),
+                       torch.where(bounded, x + rx, inf),
+                       torch.where(bounded, y - ry, -inf),
+                       torch.where(bounded, y + ry, inf)])
+    empty = torch.stack([inf, -inf, inf, -inf])[:, None]
+    return torch.where((op < f32(ALPHA_EPS))[None, :], empty, box)
+
+
+def warp_pixel_map(tile_h: int, tile_w: int) -> torch.Tensor:
+    """(P,) int64: the row-major tile pixel of each kernel thread. A warp
+    takes an 8x4 block of pixels when the tile divides into them (lanes
+    row-major inside the block, blocks row-major over the tile), else 32
+    consecutive row-major pixels (`csrc/alpha.cuh::pixel_of_thread`)."""
+    tid = torch.arange(tile_h * tile_w)
+    if tile_w % 8 == 0 and tile_h % 4 == 0:
+        warp, lane = tid // 32, tid % 32
+        per_row = tile_w // 8
+        lx = (warp % per_row) * 8 + lane % 8
+        ly = (warp // per_row) * 4 + lane // 8
+        return ly * tile_w + lx
+    return tid
 
 
 def composite_tiles_torch(rec_t: torch.Tensor, tile_starts: torch.Tensor,

@@ -12,10 +12,16 @@ forward kernel K1: channel rows atol 1e-4, depth row and log2 transmittance
 1e-3 -- the alpha chain is computed identically, the sums in another order
 (sequential against cumsum + bmm) -- and n_active exact. Of the backward
 kernel K2: per gradient row, |kernel - plain| <= 1e-3 |plain| + 1e-4 x the
-row's largest magnitude -- the kernel sums the tile's pixels in a shuffle
-tree and the suffix sequentially, the plain version with torch.sum and
-cumsum, so float32 sums of up to 256 x 128 terms are reassociated. Of
-the probe kernel K3: 1e-5 relative on each walk's scalar for the compute
+row's largest magnitude -- the kernel sums the tile's pixels by warp and
+then over warps, and the suffix sequentially, the plain version with
+torch.sum and cumsum, so float32 sums of up to 256 x 128 terms are
+reassociated. The cases that test the kernels' footprint cull (a record
+grazing a warp's edge, alpha exactly at 1/255) also require the set of
+live cells to be the same on both sides: a pixel's alpha row, and a
+record's opacity gradient, are nonzero in the kernel exactly where they
+are in the plain version. K2 must give bitwise the same output on a
+second launch. Of the probe kernel K3: 1e-5 relative on each walk's
+scalar for the compute
 variants (the same cell pipeline; the scan and the sums over 256 pixels in
 another order) and 1e-6 for dma_only (sums of 4096 values per block).
 """
@@ -29,7 +35,8 @@ from dynamic3dgaussians_tpu_torch.ops import rasterize as trast
 from dynamic3dgaussians_tpu_torch.ops.cuda import raster_bwd as K2
 from dynamic3dgaussians_tpu_torch.ops.cuda import raster_fwd as K1
 from dynamic3dgaussians_tpu_torch.ops.cuda import sol_probe as K3
-from test_torch_cases import CASES, kernel_kw, record_table
+from test_torch_cases import (CASES, GRID_H, GRID_W, LOG2E, TH, TW,
+                              kernel_kw, record_table)
 
 pytestmark = pytest.mark.gpu
 
@@ -132,9 +139,11 @@ def test_cuda_bwd_kernel_matches_plain(cuda_device, case):
     k = K2.composite_tiles_bwd(*bwd_args, **kw)
     torch.cuda.synchronize()
     assert K2.composite_tiles_bwd.launches == before + 1
+    again = K2.composite_tiles_bwd(*bwd_args, **kw)
     p = K2.composite_tiles_bwd_torch(*bwd_args, **kw)
     assert torch.isfinite(k).all()
     assert float(k.abs().max()) > 0
+    assert torch.equal(k, again)     # deterministic: no atomics
     assert_rows_close(k, p)
 
 
@@ -230,3 +239,161 @@ def test_cuda_sol_probe_matches_plain(cuda_device, kind):
     atol = torch.tensor([0.0, 1e-2] if kind == "dma_only" else [1e-3, 0.0],
                         device=cuda_device)
     assert bool(((k - p).abs() <= rtol * p.abs() + atol).all()), (k, p)
+
+
+EPS32 = float(np.float32(1.0 / 255.0))
+
+
+def explicit_table(tiles, n_chan=3, chunk=64, seed=0):
+    """A record table from explicit records: `tiles` lists, per tile of the
+    GRID_W x GRID_H grid, its records (x, y, a, b, c, op) in image pixels,
+    the conic as the covariance's inverse (scaled by log2 e here). Values
+    are seeded, depth rises in list order."""
+    rng = np.random.RandomState(seed)
+    counts = np.array([len(t) for t in tiles], np.int32)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int32)
+    ne = int(counts.sum())
+    n_val = -(-(n_chan + 2) // 8) * 8
+    rec = np.zeros((8 + n_val, (-(-ne // chunk) + 1) * chunk), np.float32)
+    recs = [r for t in tiles for r in t]
+    for j, (x, y, a, b, c, op) in enumerate(recs):
+        rec[:6, j] = [x, y, a * LOG2E, b * LOG2E, c * LOG2E, op]
+    rec[8:8 + n_chan, :ne] = rng.uniform(0, 1, (n_chan, ne))
+    rec[8 + n_chan, :ne] = np.linspace(1.0, 8.0, ne)
+    rec[8 + n_chan + 1, :ne] = 1.0
+    return rec, starts, counts, n_chan
+
+
+def _run_both(dev, rec, starts, counts, n_chan, chunk, live_grads=True):
+    """K1 and K2 and their plain versions on one table: the tolerances of
+    the tests above, K2's bitwise repeat, and the same live cells. With
+    `live_grads`, a record's opacity gradient is nonzero in K2 exactly
+    where it is in the plain version (not on opaque tiles, where T
+    underflows and an exact zero depends on the order of the sums)."""
+    args = [torch.as_tensor(a, device=dev) for a in (rec, starts, counts)]
+    kw = kernel_kw(chunk)
+    kraw, klogt, knact = K1.composite_tiles(*args, **kw)
+    praw, plogt, pnact = K1.composite_tiles_torch(*args, **kw)
+    rows = [i for i in range(kraw.shape[-1]) if i != n_chan]
+    torch.testing.assert_close(kraw[..., rows], praw[..., rows], atol=1e-4,
+                               rtol=0)
+    torch.testing.assert_close(klogt, plogt, atol=1e-3, rtol=0)
+    assert torch.equal(knact, pnact)
+    # the alpha row (sum of w) is nonzero exactly where a cell is live
+    assert torch.equal(kraw[..., n_chan + 1] > 0, praw[..., n_chan + 1] > 0)
+    d_raw = torch.as_tensor(np.random.RandomState(5).normal(
+        size=tuple(kraw.shape)).astype(np.float32), device=dev)
+    bwd_args = args + [knact.reshape(-1), klogt, d_raw]
+    k = K2.composite_tiles_bwd(*bwd_args, **kw)
+    assert torch.equal(k, K2.composite_tiles_bwd(*bwd_args, **kw))
+    p = K2.composite_tiles_bwd_torch(*bwd_args, **kw)
+    assert torch.isfinite(k).all()
+    assert_rows_close(k, p)
+    if live_grads:    # d opacity: the live records
+        assert torch.equal(k[5] != 0, p[5] != 0)
+    return kraw, k, knact
+
+
+def _origin(t):
+    return (t % GRID_W) * TW, (t // GRID_W) * TH
+
+
+def test_cuda_kernels_record_grazing_a_warp_edge(cuda_device):
+    """Round and slanted splats placed so that their live region reaches a
+    pixel on the first row or column of a neighbouring 8x4 warp within a
+    relative 1e-6 to 1e-3 of the gate, from inside and outside: the warp
+    whose edge is grazed walks the record whenever a cell of it is live."""
+    a, op = 0.5, 0.5
+    # live iff a d^2 <= 2 ln(op / EPS) (the table scales the conic by
+    # log2 e, the gate is in base 2)
+    r = np.sqrt(2.0 * np.log(op / EPS32) / a)        # b = 0
+    tiles = []
+    for t, eps in enumerate([-1e-3, -1e-5, -1e-6, 0.0, 1e-6, 1e-5, 1e-3,
+                             -1e-6, 0.0, 1e-6, -1e-4, 1e-4]):
+        ox, oy = _origin(t)
+        if t < 7:     # from warp row 0 down onto row 4 (warp row 1)
+            rec = (ox + 3.0, oy + 4.0 - r * (1 + eps), a, 0.0, a, op)
+        elif t < 10:  # from warp column 1 left onto column 7 (column 0)
+            rec = (ox + 7.0 + r * (1 + eps), oy + 9.0, a, 0.0, a, op)
+        else:         # a slanted conic at its y-extreme, onto row 8
+            ca, cb, cc = 0.3, 0.25, 0.6
+            ry = np.sqrt(2.0 * np.log(op / EPS32) * ca
+                         / (ca * cc - cb ** 2))
+            dy = -ry * (1 + eps)
+            rec = (ox + 5.0 - cb / ca * dy, oy + 8.0 + dy, ca, cb, cc, op)
+        tiles.append([rec])
+    rec, starts, counts, n_chan = explicit_table(tiles)
+    raw, _, _ = _run_both(cuda_device, rec, starts, counts, n_chan, 64)
+    assert float(raw[..., n_chan + 1].max()) > 0
+
+
+def test_cuda_kernels_alpha_exactly_at_the_gate(cuda_device):
+    """A record centred on a pixel with opacity 1/255 (float32) has alpha
+    exactly 1/255 there (power 0) and is live at that pixel alone; one
+    float32 step below it is dead everywhere. Both kernels and both plain
+    versions put the cell on the same side of the gate."""
+    below = float(np.nextafter(np.float32(EPS32), np.float32(0)))
+    tiles = []
+    for t in range(GRID_W * GRID_H):
+        ox, oy = _origin(t)
+        tiles.append([(ox + 2.0 + t % 5, oy + 3.0 + t % 7, 0.8, 0.1, 0.5,
+                       EPS32 if t % 2 == 0 else below),
+                      (ox + 13.0, oy + 14.5, 2.0, 0.1, 2.0, 0.6)])
+    rec, starts, counts, n_chan = explicit_table(tiles)
+    raw, d_out, _ = _run_both(cuda_device, rec, starts, counts, n_chan, 64)
+    gate = raw[..., n_chan + 1]
+    for t in range(GRID_W * GRID_H):
+        px = 2 + t % 5 + TW * (3 + t % 7)
+        assert (float(gate[t, px]) > 0) == (t % 2 == 0), t
+        assert (float(d_out[5, 2 * t]) != 0) == (t % 2 == 0), t
+
+
+def test_cuda_bwd_kernel_segment_sharing_a_chunk(cuda_device):
+    """Segments that start inside the previous tile's last chunk: each
+    block writes exactly its own segment's slots. K2 on the whole table
+    equals, slot for slot and bit for bit, K2 run with every other tile
+    emptied."""
+    counts = np.array([100, 40, 90, 7, 64, 130, 1, 70, 33, 0, 95, 60],
+                      np.int32)
+    rec, starts, counts, n_chan = record_table(seed=7, counts=counts,
+                                               n_chan=3, chunk=64)
+    assert (starts % 64 != 0).sum() >= 8
+    _, full, knact = _run_both(cuda_device, rec, starts, counts, n_chan, 64)
+    dev = cuda_device
+    args = [torch.as_tensor(a, device=dev) for a in (rec, starts)]
+    kw = kernel_kw(64)
+    raw, log_t, _ = K1.composite_tiles(*args, torch.as_tensor(counts,
+                                                              device=dev),
+                                       **kw)
+    d_raw = torch.as_tensor(np.random.RandomState(5).normal(
+        size=tuple(raw.shape)).astype(np.float32), device=dev)
+    for t in (1, 3, 5, 6):
+        only = np.zeros_like(counts)
+        only[t] = counts[t]
+        alone = K2.composite_tiles_bwd(
+            *args, torch.as_tensor(only, device=dev), knact.reshape(-1),
+            log_t, d_raw, **kw)
+        seg = slice(int(starts[t]), int(starts[t] + counts[t]))
+        assert torch.equal(alone[:, seg], full[:, seg]), t
+        rest = torch.ones(alone.shape[1], dtype=torch.bool, device=dev)
+        rest[seg] = False
+        assert float(alone[:, rest].abs().max()) == 0.0, t
+
+
+def test_cuda_kernels_opaque_stop_chunk128(cuda_device):
+    """opaque_stop at the default chunk of 128 on 16x16 tiles: every tile
+    dies in its first chunk of three, K2 walks only that one and leaves
+    the later chunks' slots zero."""
+    chunk = 128
+    rec, starts, counts, n_chan = record_table(
+        seed=3, counts=np.full(GRID_W * GRID_H, 258), n_chan=3, chunk=chunk,
+        opaque=True)
+    _, d_out, nact = _run_both(cuda_device, rec, starts, counts, n_chan,
+                               chunk, live_grads=False)
+    assert bool((nact == 1).all())
+    for t in range(GRID_W * GRID_H):
+        s = int(starts[t])
+        first_end = (s // chunk + 1) * chunk
+        assert float(d_out[:, first_end:s + int(counts[t])].abs().max()) \
+            == 0.0
+        assert float(d_out[:, s:first_end].abs().max()) > 0
