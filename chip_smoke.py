@@ -8,7 +8,8 @@ holds each kernel against its plain PyTorch version at the shapes the main
 paths give it (K1 forward and K2 backward on two full-width tables, the
 bench view and a stopping table on which most tiles stop early, at CV 8
 and 40, K2 twice for a bitwise repeat; K3 the speed-of-light probe at the
-bench shape, one walk and card-wide), counts the cells and (warp, record)
+bench shape, one walk and card-wide, and on a table whose alphas span
+[1/255, 0.99]), counts the cells and (warp, record)
 pairs the tile kernels walk, find live and keep after their footprint
 cull, holds the kernel path's render gradients against the frozen golden
 fixtures, drives the three main paths at full width -- `cli visualize` on
@@ -895,14 +896,22 @@ def k3_errors(k, p, kind):
     return errs, bad
 
 
+# blocks per walk of the wide-alpha table at one walk per SM (so that the
+# plain version's time stays a few seconds)
+WIDE_BLOCKS = 64
+
+
 def phase_k3(device, smi):
-    """K3 against its plain version at the bench shape (n_chunks 2143), in
-    every variant, on one walk (the reference's table) and card-wide: B
-    walks, 4 per SM, each with its own slice of a table of B x 35.1 MB,
-    far past the 50 MB L2. Each walk's two parts are held on their own
-    (`K3_PART_TOL`) and their sum as the reference's scalar (`RTOL_K3`).
-    Kernel times from CUDA events, the plain version's from one call;
-    bounds as in `phase_k1`."""
+    """K3 against its plain version in every variant on four tables: at the
+    bench shape (n_chunks 2143) one walk (the reference's table) and
+    card-wide (B walks, 4 per SM, each with its own slice of a table of B x
+    35.1 MB, far past the 50 MB L2); and the wide-alpha table, where a live
+    cell's alpha spans [1/255, 0.99], at the bench shape's one walk and at
+    one walk per SM of `WIDE_BLOCKS` blocks. Each walk's two parts are held
+    on their own (`K3_PART_TOL`) and their sum as the reference's scalar
+    (`RTOL_K3`). Kernel times from CUDA events, the plain version's from
+    one call; bounds as in `phase_k1`, and beside them the SFU floor at the
+    card's maximum SM clock."""
     import torch
     from dynamic3dgaussians_tpu_torch.ops.cuda.sol_probe import (
         KINDS, sol_probe, sol_probe_torch)
@@ -911,11 +920,17 @@ def phase_k3(device, smi):
     rec_np, _ = B.probe_inputs(small=False)
     n_chunks = rec_np.shape[1] // B.CHUNK
     sms = torch.cuda.get_device_properties(device).multi_processor_count
+    clock = B.max_sm_clock_hz()
     walks = B.WALKS_PER_SM * sms
     tables = {"one_walk": torch.as_tensor(rec_np, device=device),
-              "card_wide": B.card_table(walks, n_chunks, device)}
+              "card_wide": B.card_table(walks, n_chunks, device),
+              "wide_alpha_one_walk": B.wide_alpha_table(
+                  1, n_chunks, device, seed=1)[0],
+              "wide_alpha_per_sm": B.wide_alpha_table(
+                  sms, WIDE_BLOCKS, device, seed=2)}
     out = dict(phase="k3_vs_plain", n_chunks=n_chunks, walks=walks,
                table_bytes_card_wide=tables["card_wide"].numel() * 4,
+               sm_clock_max_mhz=clock / 1e6,
                tol=dict(scalar_rtol=RTOL_K3, parts=K3_PART_TOL), card=smi)
     bad = []
     for kind in KINDS:
@@ -924,7 +939,8 @@ def phase_k3(device, smi):
             plain_ms, p = B.cuda_ms(lambda: sol_probe_torch(rec, kind),
                                     iters=1, warmup=0)
             errs, failed = k3_errors(k, p, kind)
-            w = B.work(kind, walks if scope == "card_wide" else 1, n_chunks)
+            n_walks = rec.shape[0] if rec.dim() == 3 else 1
+            w = B.work(kind, n_walks, rec.shape[-1] // B.CHUNK, sms, clock)
             ms, _ = B.cuda_ms(lambda: sol_probe(rec, kind),
                               iters=3 if scope == "card_wide" else 5,
                               warmup=0)
@@ -932,7 +948,7 @@ def phase_k3(device, smi):
                 err_abs=float((k - p).abs().max()), errors=errs, ms=ms,
                 plain_ms=plain_ms, ns_per_cell=ms * 1e6 / w["cells"],
                 GB_s=w["table_bytes"] / ms / 1e6,
-                bound_share=w["bound_ms"] / ms, **w)
+                bound_share=w["bound_ms"] / ms, walks=n_walks, **w)
             bad += [(kind, scope, name) for name in failed]
     del tables
     torch.cuda.empty_cache()

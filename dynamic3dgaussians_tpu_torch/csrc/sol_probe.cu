@@ -21,28 +21,51 @@
 // log2T += the block's total. Output [sum(acc), sum(log2T)] over the pixels;
 // dma_only gives [sum of the rows 0..7 corner, sum of the rows 8..15 corner].
 //
-// Design: one thread block per walk, one thread per pixel (256). Each block
-// of records is staged into shared memory with coalesced row loads (256
-// threads read 256 neighbouring floats of a row), then every thread runs the
-// pipeline for its pixel sequentially over the block's records, which all
-// threads read at the same address (a shared-memory broadcast). The sums over
-// the pixels are fixed-order trees in shared memory: deterministic, no
-// atomics.
+// What bounds the compute variants on an H100. A record is 16 float32 rows,
+// 64 bytes, read once per 256 pixels: memory is far from the limit. Per cell
+// the pipeline needs ~24 float32 instructions (p0 + row6 and the min 8, the
+// gate 2, the scan step 6 with its 3 transcendentals, 8 multiply-adds). So
+// three floors: FMA (38 operations per cell at 67 TFLOP/s, 42 ms card-wide,
+// `tools/bench_sol.py::work`), SFU (3 per cell at 16 per clock per SM: 53 ms
+// at 1.98 GHz) and issue (one warp instruction per clock per scheduler,
+// loads and the loop included: ~28 per cell, ~62 ms). The first version
+// spent ~60 issue slots per cell: 15 scalar shared-memory loads, the
+// accurate exp2f/log2f sequences (range and denormal handling around each
+// MUFU op) and every term recomputed per pixel.
 //
-// What bounds it on an H100: operations for the compute variants (38 float32
-// operations and 3 SFU transcendentals per cell against 16 bytes per record
-// read once per 256 pixels), bytes for dma_only. One walk occupies one SM of
-// 132, so only a batch of walks (B a multiple of the SM count, each with its
-// own slice of a table larger than the 50 MB L2) measures the card. This
-// first version stages synchronously (no cp.async/TMA double buffering) and
-// does not split the transcendentals between the SFU and the FMA pipes.
+// Design. One thread block per walk. Each 256-record block is staged into
+// shared memory as it lies (feature-major, cp.async, double-buffered: block
+// k + 1 is copied in while block k is walked); a thread then reads a row's
+// values for 4 consecutive records in one 128-bit broadcast load (15 of them
+// per 4 records, not 15 per record). Each thread holds PPT pixels of one
+// tile column, so a record's per-column terms (dx, a dx^2, b dx) are
+// computed once for all of them, and the pixels' independent chains, with
+// the record loop unrolled 4 times (16 records per trip), give the
+// schedulers instruction-level parallelism at 4 walks (16 warps) per SM.
+// p0 + row6 is rounded step by step as the plain version rounds it (no
+// contraction), so that the 1/255 gate falls alike on both sides: a
+// factored form (4 instructions per cell instead of 8) put a cell of the
+// 528 card-wide walks on the other side of the gate and that walk's acc
+// out of its tolerance. The transcendentals are the single MUFU instructions
+// ex2.approx.ftz / lg2.approx.ftz: a dead cell's 2^-130 flushes to 0, and
+// their errors (2^-22) stay well inside the parts' tolerances. Moving one of
+// the three to an FMA-pipe polynomial costs ~11 issue slots to free one MUFU
+// op, and loses (`kernel_split.py`). The weight of a cell within a block is
+// 2^(m + cum_before), summed per pixel into the block's own accumulators,
+// which are scaled by 2^log2T once at the block's end (2^(a + b) = 2^a 2^b:
+// log2T enters once per block, not per cell). Every cell of every block runs
+// the whole pipeline; the sums over the pixels are fixed-order trees in
+// shared memory: deterministic, no atomics.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "alpha.cuh"
+
 namespace {
 
-constexpr int P = 256;      // pixels of one 16x16 tile, one thread each
+constexpr int P = 256;      // pixels of one 16x16 tile
+constexpr int TILE = 16;    // tile side
 constexpr int CHUNK = 256;  // records per staged block
 constexpr int ROWS = 16;    // 8 geometry + 8 value rows
 constexpr int NV = 8;       // value rows
@@ -50,7 +73,26 @@ constexpr int VAL_ROW = 8;  // first value row
 constexpr float LOG2_ALPHA_EPS = -7.994353436858858f;  // log2(1/255)
 constexpr float DEAD_EXP = -130.0f;  // exponent of a cell below the gate
 
+// compute variants: pixels per thread (all in one tile column), threads per
+// walk, records per step (one float4 of each row); 4 walks per SM must fit
+constexpr int PPT = 2;
+constexpr int THREADS = P / PPT;
+constexpr int R = 4;
+constexpr int WALKS_PER_SM = 4;
+
 enum Kind { COMPUTE_ONLY = 0, DMA_ONLY = 1, STREAM_COMPUTE = 2 };
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float lg2(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
 // Stage the (ROWS, CHUNK) block at `src` (row stride ne) into shared memory.
 __device__ __forceinline__ void stage(float* smem, const float* src,
@@ -60,12 +102,28 @@ __device__ __forceinline__ void stage(float* smem, const float* src,
     smem[r * CHUNK + tid] = src[(int64_t)r * ne + tid];
 }
 
-// Sum of v over the block's P threads in a fixed order (a tree in shared
+// Row values of N consecutive records (N = 4: one 128-bit load).
+template <int N>
+__device__ __forceinline__ void load_row(const float* p, float (&d)[N]) {
+  if constexpr (N == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    d[0] = v.x;
+    d[1] = v.y;
+    d[2] = v.z;
+    d[3] = v.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) d[i] = p[i];
+  }
+}
+
+// Sum of v over the block's N threads in a fixed order (a tree in shared
 // memory); every thread gets the result.
+template <int N = P>
 __device__ float block_sum(float v, float* red, int tid) {
   red[tid] = v;
   __syncthreads();
-  for (int s = P / 2; s > 0; s >>= 1) {
+  for (int s = N / 2; s > 0; s >>= 1) {
     if (tid < s) red[tid] += red[tid + s];
     __syncthreads();
   }
@@ -75,52 +133,101 @@ __device__ float block_sum(float v, float* red, int tid) {
 }
 
 template <bool RESIDENT>
-__global__ void __launch_bounds__(P)
+__global__ void __launch_bounds__(THREADS, WALKS_PER_SM)
     sol_compute_kernel(const float* __restrict__ rec, int64_t ne,
                        int n_chunks, float* __restrict__ out) {
-  __shared__ float smem[ROWS * CHUNK];
-  __shared__ float red[P];
+  // two buffers: block k + 1 is copied in while block k is walked
+  __shared__ __align__(16) float smem[2][ROWS * CHUNK];
+  __shared__ float red[THREADS];
+  constexpr int TROWS = TILE / PPT;  // tile rows apart of a thread's pixels
   const int tid = threadIdx.x;
   const float* walk = rec + (int64_t)blockIdx.x * ROWS * ne;
-  const float px = (float)(tid % 16);
-  const float py = (float)(tid / 16);
-
-  float acc[NV];
+  const float px = (float)(tid % TILE);
+  float py[PPT];
 #pragma unroll
-  for (int c = 0; c < NV; ++c) acc[c] = 0.0f;
-  float log2t = 0.0f;
+  for (int i = 0; i < PPT; ++i) py[i] = (float)(tid / TILE + i * TROWS);
 
-  for (int k = 0; k < n_chunks; ++k) {
-    if (!RESIDENT || k == 0) {
-      if (k > 0) __syncthreads();  // every thread is done with block k - 1
-      stage(smem, walk + (RESIDENT ? 0 : (int64_t)k * CHUNK), ne, tid);
-      __syncthreads();
-    }
-    float cum = 0.0f;  // inclusive running sum of log2(1 - alpha)
-#pragma unroll 4
-    for (int j = 0; j < CHUNK; ++j) {
-      const float dx = smem[0 * CHUNK + j] - px;
-      const float dy = smem[1 * CHUNK + j] - py;
-      const float p0 = -0.5f * (smem[2 * CHUNK + j] * dx * dx +
-                                smem[4 * CHUNK + j] * dy * dy) -
-                       smem[3 * CHUNK + j] * dx * dy;
-      float m = fminf(p0 + smem[6 * CHUNK + j], smem[7 * CHUNK + j]);
-      m = m >= LOG2_ALPHA_EPS ? m : DEAD_EXP;
-      const float lg = log2f(1.0f - exp2f(m));
-      cum += lg;
-      const float w = exp2f((m + (cum - lg)) + log2t);
+  float acc[PPT][NV], log2t[PPT];
 #pragma unroll
-      for (int c = 0; c < NV; ++c)
-        acc[c] = fmaf(w, smem[(VAL_ROW + c) * CHUNK + j], acc[c]);
-    }
-    log2t += cum;
+  for (int i = 0; i < PPT; ++i) {
+    log2t[i] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < NV; ++c) acc[i][c] = 0.0f;
   }
 
-  float s = 0.0f;
+  const d3g::Stager st = d3g::make_stager(walk, ne, CHUNK, tid, THREADS);
+  d3g::stage_chunk<ROWS>(st, smem[0], walk, ne, 0, CHUNK);
+  for (int k = 0; k < n_chunks; ++k) {
+    if (!RESIDENT || k == 0) {
+      d3g::cp_async_wait_all();
+      __syncthreads();  // block k is in; every thread is done with k - 1
+      if (!RESIDENT && k + 1 < n_chunks)  // into the buffer of block k - 1
+        d3g::stage_chunk<ROWS>(st, smem[(k + 1) & 1], walk, ne,
+                               (int64_t)(k + 1) * CHUNK, CHUNK);
+    }
+    const float* blk_rec = smem[RESIDENT ? 0 : k & 1];
+    // cum: the exclusive running sum of log2(1 - alpha) in this block;
+    // blk: the block's sums of 2^(m + cum) * values
+    float cum[PPT], blk[PPT][NV];
 #pragma unroll
-  for (int c = 0; c < NV; ++c) s += acc[c];
-  const float total_acc = block_sum(s, red, tid);
-  const float total_logt = block_sum(log2t, red, tid);
+    for (int i = 0; i < PPT; ++i) {
+      cum[i] = 0.0f;
+#pragma unroll
+      for (int c = 0; c < NV; ++c) blk[i][c] = 0.0f;
+    }
+#pragma unroll 4
+    for (int j = 0; j < CHUNK; j += R) {
+      float x[R], y[R], a[R], b[R], cc[R], r6[R], r7[R], v[NV][R];
+      load_row<R>(blk_rec + 0 * CHUNK + j, x);
+      load_row<R>(blk_rec + 1 * CHUNK + j, y);
+      load_row<R>(blk_rec + 2 * CHUNK + j, a);
+      load_row<R>(blk_rec + 3 * CHUNK + j, b);
+      load_row<R>(blk_rec + 4 * CHUNK + j, cc);
+      load_row<R>(blk_rec + 6 * CHUNK + j, r6);
+      load_row<R>(blk_rec + 7 * CHUNK + j, r7);
+#pragma unroll
+      for (int c = 0; c < NV; ++c)
+        load_row<R>(blk_rec + (VAL_ROW + c) * CHUNK + j, v[c]);
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        // per record and column: dx, a dx^2, b dx
+        const float dx = __fsub_rn(x[q], px);
+        const float adx2 = __fmul_rn(__fmul_rn(a[q], dx), dx);
+        const float bdx = __fmul_rn(b[q], dx);
+#pragma unroll
+        for (int i = 0; i < PPT; ++i) {
+          const float dy = __fsub_rn(y[q], py[i]);
+          const float s = __fadd_rn(adx2, __fmul_rn(__fmul_rn(cc[q], dy), dy));
+          // -s/2 is exact, so the fma rounds as (-s/2) - b dx dy does
+          const float p0 = fmaf(-0.5f, s, -__fmul_rn(bdx, dy));
+          float m = fminf(__fadd_rn(p0, r6[q]), r7[q]);
+          m = m >= LOG2_ALPHA_EPS ? m : DEAD_EXP;
+          const float lg = lg2(1.0f - ex2(m));
+          const float w = ex2(m + cum[i]);
+          cum[i] += lg;
+#pragma unroll
+          for (int c = 0; c < NV; ++c) blk[i][c] = fmaf(w, v[c][q], blk[i][c]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < PPT; ++i) {
+      const float t0 = ex2(log2t[i]);  // 1 in the first block
+#pragma unroll
+      for (int c = 0; c < NV; ++c) acc[i][c] = fmaf(t0, blk[i][c], acc[i][c]);
+      log2t[i] += cum[i];
+    }
+  }
+
+  float s = 0.0f, lt = 0.0f;
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) {
+    lt += log2t[i];
+#pragma unroll
+    for (int c = 0; c < NV; ++c) s += acc[i][c];
+  }
+  const float total_acc = block_sum<THREADS>(s, red, tid);
+  const float total_logt = block_sum<THREADS>(lt, red, tid);
   if (tid == 0) {
     out[2 * blockIdx.x] = total_acc;
     out[2 * blockIdx.x + 1] = total_logt;
@@ -175,10 +282,12 @@ extern "C" int d3g_sol_probe(const float* rec, long long ne, int n_walks,
   const int n_chunks = (int)(ne / CHUNK);
   switch (kind) {
     case COMPUTE_ONLY:
-      sol_compute_kernel<true><<<n_walks, P, 0, s>>>(rec, ne, n_chunks, out);
+      sol_compute_kernel<true><<<n_walks, THREADS, 0, s>>>(rec, ne, n_chunks,
+                                                           out);
       break;
     case STREAM_COMPUTE:
-      sol_compute_kernel<false><<<n_walks, P, 0, s>>>(rec, ne, n_chunks, out);
+      sol_compute_kernel<false><<<n_walks, THREADS, 0, s>>>(rec, ne,
+                                                            n_chunks, out);
       break;
     case DMA_ONLY:
       sol_dma_kernel<<<n_walks, P, 0, s>>>(rec, ne, n_chunks, out);

@@ -3,7 +3,8 @@ its plain PyTorch version.
 
 Port of the probe of `tools/bench_vpu_sol.py` (its `build`: the bodies
 `kern_compute` with `fused_process`, and `kern_dma`). The kernel is
-`csrc/sol_probe.cu` (one thread block per walk, one thread per pixel; its
+`csrc/sol_probe.cu` (one thread block per walk; the compute variants give
+each thread two pixels of a tile column and read records in 128-bit loads; its
 source note says what bounds it). A walk is the work of one 16x16 tile, the
 pixels (lin % 16, lin // 16) of tile 0, over a feature-major table
 

@@ -14,10 +14,13 @@ scalar (`value`, the reference's) and its two `parts`, and `card_wide`:
 the same variant over B walks (4 per SM), each with its own slice of a
 table of B x 35.1 MB, the size that keeps timed repeats out of the 50 MB
 L2. One walk is one SM's work, so only the card-wide figures are card
-figures. Then `exp2`: torch.exp2(x).sum() over
-the reference's (n_chunks, 256, 128) draw, the counterpart of its XLA
-`exp2_xla` line. Times are CUDA events over 3 launches after a warm-up;
-every line carries the card's `nvidia-smi` name and power limit.
+figures. Beside each bound stands `sfu_floor_ms`, the 3 transcendentals per
+cell at the SFU's rate and the card's maximum SM clock (`nvidia-smi
+--query-gpu=clocks.max.sm`, given as `sm_clock_max_mhz`). Then `exp2`:
+torch.exp2(x).sum() over the reference's (n_chunks, 256, 128) draw, the
+counterpart of its XLA `exp2_xla` line. Times are CUDA events over 3
+launches after a warm-up; every line carries the card's `nvidia-smi` name
+and power limit.
 On the CPU the lines carry the values and no times.
 """
 
@@ -45,12 +48,22 @@ ITERS = 3                # timed launches per figure, after one warm-up
 # products of offsets, 3 coefficient muls, add, * -1/2, sub), the gate 3 (add
 # row 6, min row 7, compare-select), the scan step 8 (exp2, 1 - alpha, log2,
 # running add, cum - l, + m, + log2T, exp2), the 8 value rows 16 (multiply-
-# adds). Transcendentals count as one operation each.
+# adds). Each of the 3 transcendentals counts as one operation at the FMA
+# rate, which the card's SFU, where they run, does not reach: `sfu_floor_ms`
+# beside the bound counts them at the SFU's rate. The count is held fixed so
+# that bound shares compare across versions of the kernel; the CUDA kernel
+# itself does ~34 per cell (dx, a dx^2 and b dx once per record for a
+# thread's 2 pixels of a column, an exclusive scan with no cum - l, log2T
+# added once per block), so its bound on its own count is ~0.89x this one.
 FLOPS_PER_CELL = 38
+TRANSCENDENTALS_PER_CELL = 3
 # H100 SXM published peaks (NVIDIA data sheet): float32 outside the tensor
 # cores and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_S = 3.35e12
+# ex2 / lg2 results per clock per SM on sm_90 (CUDA C Programming Guide,
+# arithmetic instruction throughput)
+SFU_PER_CLOCK_SM = 16
 
 
 def probe_inputs(small: bool):
@@ -77,10 +90,29 @@ def card_table(n_walks: int, n_chunks: int, device, seed: int = 0):
     return rec
 
 
-def work(kind: str, n_walks: int, n_chunks: int) -> Dict:
+def wide_alpha_table(n_walks: int, n_chunks: int, device, seed: int = 0):
+    """`card_table`'s draw with rows 6 and 7 drawn so that a live cell's
+    alpha spans [1/255, 0.99] (the bench table's rows at -2 cap it at
+    0.25): row 7 is log2 of a uniform draw in [1/255, 0.99], row 6 uniform
+    in [-1, 1]. It holds the kernel's transcendentals where log2(1 - alpha)
+    is far from 0 and transmittance falls within a few records."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rec = torch.rand((n_walks, ROWS, n_chunks * CHUNK), generator=gen,
+                     device=device)
+    rec.mul_(2.0).sub_(1.0)
+    u = torch.rand((n_walks, n_chunks * CHUNK), generator=gen, device=device)
+    rec[:, 7] = torch.log2(1.0 / 255.0 + u * (0.99 - 1.0 / 255.0))
+    return rec
+
+
+def work(kind: str, n_walks: int, n_chunks: int, sms: int,
+         clock_hz: float) -> Dict:
     """Cells, operations and bytes of one call, and its bound: the larger of
     the operations over the float32 peak and the bytes (the table read once,
-    one float written per walk) over the memory rate."""
+    one float written per walk) over the memory rate. Beside it
+    `sfu_floor_ms`: the compute variants' 3 transcendentals per cell at
+    `SFU_PER_CLOCK_SM` per SM on `sms` SMs at `clock_hz` (None for dma_only,
+    which has none)."""
     cells = n_walks * n_chunks * CHUNK * P
     table = n_walks * ROWS * n_chunks * CHUNK * 4
     if kind == "dma_only":
@@ -93,9 +125,13 @@ def work(kind: str, n_walks: int, n_chunks: int) -> Dict:
                   else table) + 4 * n_walks
     t_ops = flops / PEAK_F32_FLOPS * 1e3
     t_bytes = bytes_ / PEAK_BYTES_S * 1e3
+    sfu = (None if kind == "dma_only" else
+           cells * TRANSCENDENTALS_PER_CELL
+           / (SFU_PER_CLOCK_SM * sms * clock_hz) * 1e3)
     return dict(cells=cells, flops=flops, bytes=bytes_, table_bytes=table,
                 bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes")
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                sfu_floor_ms=sfu)
 
 
 def smi_line() -> str:
@@ -104,6 +140,16 @@ def smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
+
+
+def max_sm_clock_hz() -> float:
+    """The card's maximum SM clock, from `nvidia-smi --query-gpu=
+    clocks.max.sm` (MHz), in Hz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+    return float(out) * 1e6
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1):
@@ -145,25 +191,29 @@ def main(argv=None) -> int:
     card = smi_line() if on_card else None
     if on_card:
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        clock = max_sm_clock_hz()
         walks = WALKS_PER_SM * sms
         wide = card_table(walks, n_chunks, dev)
 
     out = {}
     for kind in KINDS:
-        w1 = work(kind, 1, n_chunks)
         parts = sol_probe(rec, kind)
         line = dict(value=float(total(parts)),
                     parts=dict(zip(PARTS[kind], parts.tolist())),
-                    n_chunks=n_chunks, cells=w1["cells"],
-                    bound_ms=w1["bound_ms"], bound_by=w1["bound_by"])
+                    n_chunks=n_chunks, cells=n_chunks * CHUNK * P)
         if on_card:
-            line.update(rates(cuda_ms(lambda: sol_probe(rec, kind),
-                                      ITERS)[0], w1))
-            ww = work(kind, walks, n_chunks)
+            w1 = work(kind, 1, n_chunks, sms, clock)
+            line.update(bound_ms=w1["bound_ms"], bound_by=w1["bound_by"],
+                        sfu_floor_ms=w1["sfu_floor_ms"],
+                        sm_clock_max_mhz=clock / 1e6,
+                        **rates(cuda_ms(lambda: sol_probe(rec, kind),
+                                        ITERS)[0], w1))
+            ww = work(kind, walks, n_chunks, sms, clock)
             vals = sol_probe(wide, kind)
             line["card_wide"] = dict(
                 walks=walks, table_bytes=ww["table_bytes"],
                 bound_ms=ww["bound_ms"], bound_by=ww["bound_by"],
+                sfu_floor_ms=ww["sfu_floor_ms"],
                 finite=bool(torch.isfinite(vals).all()),
                 **rates(cuda_ms(lambda: sol_probe(wide, kind), ITERS)[0],
                         ww))

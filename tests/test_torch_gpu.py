@@ -220,25 +220,43 @@ def test_cuda_train_step(cuda_device):
     assert float(new_vars["denom"].sum()) > 0
 
 
-@pytest.mark.parametrize("kind", K3.KINDS)
-def test_cuda_sol_probe_matches_plain(cuda_device, kind):
-    """K3 over a batch of walks (8 blocks each) against its plain version:
-    each walk's two parts on their own, |kernel - plain| <= rtol |plain| +
-    atol, with rtol 1e-5 (compute variants) or 1e-6 (dma_only), atol 1e-3
-    on the acc part and 1e-2 on the value corner (sums that may cancel)."""
-    from dynamic3dgaussians_tpu_torch.tools.bench_sol import card_table
-    rec = card_table(6, 8, cuda_device, seed=2)
+def assert_k3_close(rec, kind):
+    """K3 on `rec` against its plain version, each walk's two parts on
+    their own: |kernel - plain| <= rtol |plain| + atol, with rtol 1e-5
+    (compute variants) or 1e-6 (dma_only), atol 1e-3 on the acc part and
+    1e-2 on the value corner (sums that may cancel). One launch."""
     before = K3.sol_probe.launches
     k = K3.sol_probe(rec, kind)
     torch.cuda.synchronize()
     assert K3.sol_probe.launches == before + 1
     p = K3.sol_probe_torch(rec, kind)
-    assert k.shape == p.shape == (6, 2)
+    assert k.shape == p.shape == (rec.shape[0], 2)
     assert torch.isfinite(k).all()
     rtol = 1e-6 if kind == "dma_only" else 1e-5
     atol = torch.tensor([0.0, 1e-2] if kind == "dma_only" else [1e-3, 0.0],
-                        device=cuda_device)
+                        device=rec.device)
     assert bool(((k - p).abs() <= rtol * p.abs() + atol).all()), (k, p)
+
+
+@pytest.mark.parametrize("kind", K3.KINDS)
+def test_cuda_sol_probe_matches_plain(cuda_device, kind):
+    """K3 over a batch of walks (8 blocks each) against its plain version."""
+    from dynamic3dgaussians_tpu_torch.tools.bench_sol import card_table
+    assert_k3_close(card_table(6, 8, cuda_device, seed=2), kind)
+
+
+@pytest.mark.parametrize("table", ("wide_alpha", "one_chunk"))
+@pytest.mark.parametrize("kind", K3.KINDS)
+def test_cuda_sol_probe_wide_alpha_and_one_chunk(cuda_device, kind, table):
+    """K3 against its plain version on the wide-alpha table (a live cell's
+    alpha spans [1/255, 0.99], so log2(1 - alpha) and transmittance range
+    far beyond the bench table's) over 8 walks of 16 blocks, and on walks
+    of a single block."""
+    from dynamic3dgaussians_tpu_torch.tools.bench_sol import (
+        card_table, wide_alpha_table)
+    assert_k3_close(wide_alpha_table(8, 16, cuda_device, seed=4)
+                    if table == "wide_alpha"
+                    else card_table(5, 1, cuda_device, seed=6), kind)
 
 
 EPS32 = float(np.float32(1.0 / 255.0))

@@ -148,12 +148,87 @@ def test_wrapper_routing(monkeypatch):
 def test_bound_and_work_counts():
     """The bound the smoke reports: operations for the compute variants
     (compute_only reads one block per walk), bytes for dma_only."""
-    w = bench_sol.work("compute_only", 2, 3)
+    w = bench_sol.work("compute_only", 2, 3, 132, 1.98e9)
     assert w["cells"] == 2 * 3 * 256 * 256 and w["bound_by"] == "operations"
     assert w["bytes"] == 2 * 16 * 256 * 4 + 2 * 4
-    s = bench_sol.work("stream_compute", 2, 3)
+    s = bench_sol.work("stream_compute", 2, 3, 132, 1.98e9)
     assert s["bytes"] == s["table_bytes"] + 2 * 4 == 2 * 16 * 768 * 4 + 8
-    d = bench_sol.work("dma_only", 2, 3)
+    d = bench_sol.work("dma_only", 2, 3, 132, 1.98e9)
     assert d["bound_by"] == "bytes"
     np.testing.assert_allclose(d["bound_ms"], d["bytes"]
                                / bench_sol.PEAK_BYTES_S * 1e3)
+
+
+def test_sfu_floor_counts():
+    """`work` puts the SFU floor beside the bound: 3 transcendentals per
+    cell over 16 per clock per SM, the SM count and the clock; the bound
+    itself (38 operations per cell at the float32 peak) does not depend on
+    them, and dma_only has no transcendentals."""
+    sms, clock = 132, 1.98e9
+    for kind in ("compute_only", "stream_compute"):
+        w = bench_sol.work(kind, 528, 2143, sms, clock)
+        cells = 528 * 2143 * 256 * 256
+        assert w["cells"] == cells
+        np.testing.assert_allclose(w["sfu_floor_ms"],
+                                   3 * cells / (16 * sms * clock) * 1e3,
+                                   rtol=1e-12)
+        # about 53 ms for the card-wide call at 1.98 GHz
+        assert 52.0 < w["sfu_floor_ms"] < 54.0
+        # the bound stays the 42.06 ms that earlier versions were held to
+        assert w["bound_by"] == "operations"
+        assert 42.0 < w["bound_ms"] < 42.1
+        other = bench_sol.work(kind, 528, 2143, 66, 1.0e9)
+        assert other["bound_ms"] == w["bound_ms"]
+    np.testing.assert_allclose(
+        bench_sol.work("stream_compute", 1, 4, 66, 1.0e9)["sfu_floor_ms"],
+        3 * 4 * 256 * 256 / (16 * 66 * 1.0e9) * 1e3, rtol=1e-12)
+    assert bench_sol.work("dma_only", 2, 3, sms, clock)["sfu_floor_ms"] \
+        is None
+
+
+def probe_float64(rec, kind):
+    """The compute variants' two parts per walk, recomputed from the
+    (B, 16, n) float32 table in float64 with numpy."""
+    b, _, ne = rec.shape
+    r = rec.astype(np.float64).reshape(b, 16, ne // 256, 256)
+    lin = np.arange(256)
+    px, py = (lin % 16)[:, None], (lin // 16)[:, None]
+    out = []
+    for wk in range(b):
+        log_t, acc = np.zeros(256), np.zeros((256, 8))
+        for k in range(ne // 256):
+            g = r[wk, :, 0 if kind == "compute_only" else k, :]
+            dx, dy = g[0] - px, g[1] - py
+            p0 = -0.5 * (g[2] * dx * dx + g[4] * dy * dy) - g[3] * dx * dy
+            m = np.minimum(p0 + g[6], g[7])
+            m = np.where(m >= K3.LOG2_ALPHA_EPS, m, K3.DEAD_EXP)
+            lg = np.log2(1.0 - np.exp2(m))
+            cum = np.cumsum(lg, axis=1)
+            acc += np.exp2(m + (cum - lg) + log_t[:, None]) @ g[8:16].T
+            log_t += cum[:, -1]
+        out.append([acc.sum(), log_t.sum()])
+    return np.array(out)
+
+
+@pytest.mark.parametrize("kind", ("compute_only", "stream_compute"))
+def test_wide_alpha_table_plain_vs_float64(kind):
+    """On the wide-alpha table a live cell's alpha spans [1/255, 0.99]
+    (most live cells above the bench table's cap of 0.25), and the plain
+    version's two parts agree with a float64 recomputation within 2e-6
+    relative each (float32 rounding of the same pipeline; measured ~4e-7)."""
+    rec = bench_sol.wide_alpha_table(2, 3, "cpu", seed=3)
+    g = rec[:, :8].double()
+    lin = torch.arange(256, dtype=torch.float64)
+    dx = g[:, 0, None, :] - (lin % 16)[None, :, None]
+    dy = g[:, 1, None, :] - torch.div(lin, 16, rounding_mode="floor")[
+        None, :, None]
+    p0 = -0.5 * (g[:, 2, None] * dx * dx + g[:, 4, None] * dy * dy) \
+        - g[:, 3, None] * dx * dy
+    m = torch.minimum(p0 + g[:, 6, None], g[:, 7, None])
+    alpha = torch.exp2(m[m >= K3.LOG2_ALPHA_EPS])
+    assert float(alpha.min()) < 0.005 and float(alpha.max()) > 0.98
+    assert float((alpha > 0.25).double().mean()) > 0.5
+    assert float(alpha.max()) <= 0.99 + 1e-6
+    got = K3.sol_probe_torch(rec, kind).double().numpy()
+    want = probe_float64(rec.numpy(), kind)
+    np.testing.assert_allclose(got, want, rtol=2e-6, atol=0)
