@@ -12,12 +12,19 @@ bench shape, one walk and card-wide, and on a table whose alphas span
 [1/255, 0.99]), counts the cells and (warp, record)
 pairs the tile kernels walk, find live and keep after their footprint
 cull, holds the kernel path's render gradients against the frozen golden
-fixtures, drives the three main paths at full width -- `cli visualize` on
-a 200k-gaussian, 3-timestep checkpoint at 640x360; `cli train` over 3
-timesteps of a 200k scene seen by 4 cameras at 640x360 (30 steps at t = 0,
-10 at each later one), timing its steps and the PSNR of every view before
-and after each timestep; and the probe's entry point `tools/bench_sol.py`
--- and checks that each went through its kernels. Prints one JSON object
+fixtures, drives the main paths at full width -- `cli visualize` on
+a 200k-gaussian, 3-timestep checkpoint at 640x360; `cli train
+--checkpoint_every 15` over 3 timesteps of a 200k scene seen by 4 cameras
+at 640x360 (30 steps at t = 0, 10 at each later one, the images streamed
+by the native FileLoader), timing its steps and the PSNR of every view
+before and after each timestep; `cli train --resume` from its final
+checkpoint (bitwise its last timestep) and from its step 45 (mid t = 2);
+`cli evaluate` and `cli evaluate-suite` on its params.npz (K1 once per
+view, each view's pixels, PSNR and SSIM held against the plain path); pixel
+tracking of 256 foreground pixels (one K1 launch, against the plain path
+and the layout's known motion); the approximate kNN at the scene's ~100k
+foreground points; and the probe's entry point `tools/bench_sol.py` --
+and checks that each went through its kernels. Prints one JSON object
 per phase; the last line is `{"ok": true, "device": {...}}`. Any failure
 propagates and exits non-zero, as does a machine without CUDA. Imports
 nothing of JAX.
@@ -25,6 +32,7 @@ nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -87,6 +95,28 @@ CHUNK = 128
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def launch_counts():
+    """The kernels' wrappers K1, K2, K3; each adds one to its `launches`
+    where it launches its kernel, and nowhere else."""
+    from dynamic3dgaussians_tpu_torch.ops.cuda.raster_bwd import \
+        composite_tiles_bwd
+    from dynamic3dgaussians_tpu_torch.ops.cuda.raster_fwd import \
+        composite_tiles
+    from dynamic3dgaussians_tpu_torch.ops.cuda.sol_probe import sol_probe
+    return (composite_tiles, composite_tiles_bwd, sol_probe)
+
+
+def zero_launches():
+    for fn in launch_counts():
+        fn.launches = 0
+
+
+def read_launches():
+    fwd, bwd, sol = launch_counts()
+    return {"raster_fwd": fwd.launches, "raster_bwd": bwd.launches,
+            "sol_probe": sol.launches}
 
 
 def bench_scene(seed=0, n=N_GAUSS, scales=(0.004, 0.015), opac=(0.5, 0.99)):
@@ -546,11 +576,6 @@ def phase_main_path(scene, device, smi):
     import torch
     from dynamic3dgaussians_tpu_torch import cli
     from dynamic3dgaussians_tpu_torch.ops.camera import orbit_cameras
-    from dynamic3dgaussians_tpu_torch.ops.cuda.raster_bwd import \
-        composite_tiles_bwd
-    from dynamic3dgaussians_tpu_torch.ops.cuda.raster_fwd import \
-        composite_tiles
-    from dynamic3dgaussians_tpu_torch.ops.cuda.sol_probe import sol_probe
     from dynamic3dgaussians_tpu_torch.viz.export import (load_params,
                                                          save_params)
     from dynamic3dgaussians_tpu_torch.viz.render import (params_at_t,
@@ -578,16 +603,12 @@ def phase_main_path(scene, device, smi):
         flags = ["--frames", str(n_frames), "--width", str(W),
                  "--height", str(H), "--focal", str(F),
                  "--radius", str(radius)]
-        composite_tiles.launches = 0
-        composite_tiles_bwd.launches = 0
-        sol_probe.launches = 0
+        zero_launches()
         t_start = time.perf_counter()
         cli.main(["visualize", "--params", path, "--out", gif] + flags)
         torch.cuda.synchronize()
         cli_s = time.perf_counter() - t_start
-        launches = {"raster_fwd": composite_tiles.launches,
-                    "raster_bwd": composite_tiles_bwd.launches,
-                    "sol_probe": sol_probe.launches}
+        launches = read_launches()
         gif_bytes = os.path.getsize(gif)
         stacked = load_params(path)
     if launches["raster_fwd"] != n_frames or launches["raster_bwd"] or \
@@ -684,13 +705,17 @@ def views_psnr(params, alive, frames, device):
     return out_psnr, cut
 
 
-def train_bench(scene, device, tmp, radius=TRAIN_RADIUS, method=None):
+def train_bench(scene, device, tmp, radius=TRAIN_RADIUS, method=None,
+                checkpoint_every=0):
     """Write the bench scene as a 3-timestep, 4-camera 640x360
     reference layout on an orbit of `radius` (the foreground, the rows of
     seg 1, moves rigidly over the timesteps) and run `cli train
     --time_steps` on it: 30 steps at t = 0 with densify passes at i = 10
     and 20, 10 steps at each later t, reports every 5, `raster.method` =
-    `method` when given. The kernels' launch counts are set to 0 just
+    `method` when given, a checkpoint every `checkpoint_every` global
+    steps when given (those steps are left out of the step-time medians
+    and listed as `save_steps`). The kernels' launch
+    counts are set to 0 just
     before the command and read just after. Returns what the run logged,
     with the PSNR of every view before and after each timestep: before t =
     0 from the initial state, before t > 0 from the output of t - 1 at t's
@@ -702,11 +727,6 @@ def train_bench(scene, device, tmp, radius=TRAIN_RADIUS, method=None):
     from dynamic3dgaussians_tpu_torch.data.synthetic import \
         write_reference_layout
     from dynamic3dgaussians_tpu_torch.models import gaussians as G
-    from dynamic3dgaussians_tpu_torch.ops.cuda.raster_bwd import \
-        composite_tiles_bwd
-    from dynamic3dgaussians_tpu_torch.ops.cuda.raster_fwd import \
-        composite_tiles
-    from dynamic3dgaussians_tpu_torch.ops.cuda.sol_probe import sol_probe
     from dynamic3dgaussians_tpu_torch.viz.export import load_params
     from dynamic3dgaussians_tpu_torch.viz.render import params_at_t
 
@@ -733,19 +753,17 @@ def train_bench(scene, device, tmp, radius=TRAIN_RADIUS, method=None):
     # the default --timesteps: TRAIN_T
     flags = ["--iters_first", str(TRAIN_STEPS), "--iters_per_t",
              str(TRAIN_STEPS_LATER), "--time_steps"]
+    if checkpoint_every:
+        flags += ["--checkpoint_every", str(checkpoint_every)]
     argv = (["train", "--data_root", tmp, "--seq", seq, "--exp", "smoke",
              "--output", os.path.join(tmp, "out"), "--device", str(device),
              "--config_json", cfg_path] + flags)
-    composite_tiles.launches = 0
-    composite_tiles_bwd.launches = 0
-    sol_probe.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     cli.main(argv)
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
-    launches = {"raster_fwd": composite_tiles.launches,
-                "raster_bwd": composite_tiles_bwd.launches,
-                "sol_probe": sol_probe.launches}
+    launches = read_launches()
     run = os.path.join(tmp, "out", "smoke", seq)
     path = os.path.join(run, "params.npz")
     if not os.path.exists(path):
@@ -774,9 +792,14 @@ def train_bench(scene, device, tmp, radius=TRAIN_RADIUS, method=None):
         step_ms = [(r["step"], int(r[pre + "time/k"]),
                     r[pre + "time/step_ms"])
                    for r in rows if pre + "time/step_ms" in r]
+        # the global step count after step i of timestep t
+        first = 0 if t == 0 else TRAIN_STEPS + (t - 1) * TRAIN_STEPS_LATER
+        save_steps = [i for i, _, _ in step_ms if checkpoint_every and
+                      (first + i + 1) % checkpoint_every == 0]
         by_k = {}
-        for _, k, ms in step_ms:
-            by_k.setdefault(k, []).append(ms)
+        for i, k, ms in step_ms:
+            if i not in save_steps:
+                by_k.setdefault(k, []).append(ms)
         per_t.append(dict(
             t=t, steps=TRAIN_STEPS if t == 0 else TRAIN_STEPS_LATER,
             reports=[dict(i=r["step"], loss=r[pre + "loss"],
@@ -789,6 +812,7 @@ def train_bench(scene, device, tmp, radius=TRAIN_RADIUS, method=None):
             psnr_views_mean_before=float(np.mean(psnr_before)),
             psnr_views_mean_after=float(np.mean(psnr_after)),
             psnr_views_cut_rects=[cut_before, cut_after], step_ms=step_ms,
+            save_steps=save_steps,
             step_ms_median_by_k={str(k): float(np.median(v))
                                  for k, v in sorted(by_k.items())},
             steps_by_k={str(k): len(v) for k, v in sorted(by_k.items())},
@@ -811,16 +835,21 @@ def train_bench(scene, device, tmp, radius=TRAIN_RADIUS, method=None):
                for r in rows if "t0/graph/knn_s" in r],
         n_out=int(stacked["means3D"].shape[1]),
         out_timesteps=int(stacked["means3D"].shape[0]), cli_s=cli_s,
-        layout_s=layout_s, timesteps=per_t)
+        layout_s=layout_s, timesteps=per_t, data_root=tmp, seq=seq,
+        run_dir=run, argv=argv)
 
 
-def phase_train_main_path(scene, device, smi):
-    """`cli train` over 3 timesteps of the bench scene (see
-    `train_bench`). Its step time per timestep is the median of the steps
-    the run took at the K it ended with, from the run's own per-step log;
-    the first step of each timestep is not timed."""
-    with tempfile.TemporaryDirectory() as tmp:
-        rec = train_bench(scene, device, tmp)
+def phase_train_main_path(scene, device, smi, tmp):
+    """`cli train --checkpoint_every 15` over 3 timesteps of the bench
+    scene (see `train_bench`) in `tmp`, whose layout, outputs and
+    checkpoints the later phases read. Its step time per timestep is the
+    median of the steps the run took at the K it ended with, from the
+    run's own per-step log; the first step of each timestep is not timed,
+    and the three steps that end in a checkpoint save are left out
+    (`ckpt_main_path` reports the saves' seconds)."""
+    with checkpoint_calls() as calls:
+        rec = train_bench(scene, device, tmp, checkpoint_every=CKPT_EVERY)
+    rec["checkpoint_calls"] = calls
     per_t = rec["timesteps"]
     medians = [ts["step_ms_median_by_k"].get(str(ts["final_k"]))
                for ts in per_t]
@@ -862,6 +891,445 @@ def phase_train_main_path(scene, device, smi):
     if len(densify) != 2 or not rec["graph"] or \
             rec["n_out"] != densify[-1]["n_alive"]:
         raise AssertionError(f"densify / graph / output rows: {rec}")
+    return rec
+
+
+# Checkpoints: `train_main_path` saves every 15 global steps of its
+# 30 + 10 + 10, at 15, 30 and 45, and at the end at 50 + 1.
+CKPT_EVERY = 15
+CKPT_SAVED = [15, 30, 45, 51]
+CKPT_MID = 45                       # t = 2, i = 4
+# evaluation: the kernel path's per-view metrics against the plain path's
+EVAL_PSNR_TOL_DB = 0.01
+EVAL_SSIM_TOL = 1e-4
+# tracking: 256 foreground pixels of camera 0, kernel against plain path
+TRACK_QUERIES = 256
+TRACK_TOL_PX = 1e-3
+PCK_RATIO = 0.05
+KNN_K = 20
+# the approximate 20-NN's recall at the bench scene's foreground: 0.724 on
+# the card; a mis-sized candidate window or a dropped grid falls below
+KNN_RECALL_MIN = 0.65
+
+
+@contextlib.contextmanager
+def checkpoint_calls():
+    """Records each CheckpointManager save and load while active: (what,
+    step, seconds), the device idle at the start of each call, so that a
+    save's seconds are its own and not the pending step's."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.train.checkpoint import \
+        CheckpointManager as M
+    calls = []
+    save, load = M.save, M.load
+
+    def timed_save(mgr, step, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = save(mgr, step, *a, **kw)
+        calls.append(("save", int(step), time.perf_counter() - t0))
+        return out
+
+    def timed_load(mgr, step=None, device=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = load(mgr, step, device)
+        torch.cuda.synchronize()
+        calls.append(("load", None if out is None else out[0],
+                      time.perf_counter() - t0))
+        return out
+
+    M.save, M.load = timed_save, timed_load
+    try:
+        yield calls
+    finally:
+        M.save, M.load = save, load
+
+
+def copy_run(src_root, dst_root, keep_steps):
+    """A copy of the output tree `src_root` whose ckpt directory holds only
+    `keep_steps`; the checkpoint files are hard links (the manager replaces
+    files, never writes into one), everything else is copied."""
+    import shutil
+
+    def ignore(d, names):
+        return [n for n in names if n.endswith(".pt")
+                and n not in {f"step_{s}.pt" for s in keep_steps}]
+
+    def copy(s, d):
+        return os.link(s, d) if s.endswith(".pt") else shutil.copy2(s, d)
+    shutil.copytree(src_root, dst_root, ignore=ignore, copy_function=copy)
+
+
+def resume_run(train_rec, out_root, device, load_final=False):
+    """`cli train --resume` of `train_main_path`'s command into `out_root`
+    (a copy of its output tree): its launches and seconds, its run dir,
+    its checkpoint calls, the metrics rows it appended and, with
+    `load_final`, its final checkpoint (step, params, opt, vars,
+    cursor)."""
+    import torch
+    from dynamic3dgaussians_tpu_torch import cli
+    from dynamic3dgaussians_tpu_torch.train.checkpoint import \
+        CheckpointManager
+    argv = list(train_rec["argv"])
+    argv[argv.index("--output") + 1] = out_root
+    run = os.path.join(out_root, "smoke", train_rec["seq"])
+    with open(os.path.join(run, "metrics.jsonl")) as fh:
+        n_rows = len(fh.readlines())
+    with checkpoint_calls() as calls:
+        zero_launches()
+        t0 = time.perf_counter()
+        cli.main(argv + ["--resume"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+    with open(os.path.join(run, "metrics.jsonl")) as fh:
+        rows = [json.loads(x) for x in fh.readlines()[n_rows:]]
+    final = (CheckpointManager(os.path.join(run, "ckpt")).load(
+        device=device) if load_final else None)
+    return dict(launches=launches, seconds=seconds, run=run, calls=calls,
+                final=final, rows=rows)
+
+
+def phase_ckpt_main_path(train_rec, device, smi):
+    """Checkpoints and resume on `train_main_path`'s run: the steps it
+    saved (with the native FileLoader streaming the layout's images), the
+    seconds of each save and load and the bytes of one checkpoint at the
+    800,768-row capacity; a resume from the final checkpoint (no step runs:
+    its params.npz is the uninterrupted run's last timestep, bitwise); and
+    a resume from a copy holding only step 45 (t = 2, i = 4), which must
+    finish with finite losses and an all-view PSNR after t = 2 at least
+    the uninterrupted run's before t = 2."""
+    import torch
+    from dynamic3dgaussians_tpu_torch import native
+    from dynamic3dgaussians_tpu_torch.data import dataset as D
+    from dynamic3dgaussians_tpu_torch.viz.export import load_params
+    if not native.available():
+        raise AssertionError("the native library did not build: cli train "
+                             "read the layout without the FileLoader")
+    run = train_rec["run_dir"]
+    out_root = os.path.dirname(os.path.dirname(run))
+    calls = train_rec["checkpoint_calls"]
+    saved = [s for what, s, _ in calls if what == "save"]
+    save_s = [x for what, _, x in calls if what == "save"]
+    ckpt_dir = os.path.join(run, "ckpt")
+    on_disk = sorted(int(n[5:-3]) for n in os.listdir(ckpt_dir)
+                     if n.startswith("step_") and n.endswith(".pt"))
+    ckpt_bytes = os.path.getsize(os.path.join(ckpt_dir,
+                                              f"step_{CKPT_MID}.pt"))
+    full = load_params(os.path.join(run, "params.npz"))
+
+    # resume from the final checkpoint: no step runs
+    copy_run(out_root, out_root + "_final", [CKPT_SAVED[-1]])
+    fin = resume_run(train_rec, out_root + "_final", device)
+    res = load_params(os.path.join(fin["run"], "params.npz"))
+    shared = sorted(set(res) & set(full))
+    bitwise = {k: bool(res[k].shape[0] == 1
+                       and np.array_equal(res[k][0], full[k][-1]))
+               for k in shared}
+
+    # resume from step 45, mid t = 2
+    copy_run(out_root, out_root + "_mid", [CKPT_MID])
+    mid = resume_run(train_rec, out_root + "_mid", device, load_final=True)
+    step, params, _, variables, cursor = mid["final"]
+    md = D.load_meta(train_rec["data_root"], train_rec["seq"])
+    frames = D.load_timestep(train_rec["data_root"], train_rec["seq"], md,
+                             TRAIN_T - 1, device=device)
+    psnr_mid, cut = views_psnr(params, variables["alive"], frames, device)
+    before = train_rec["timesteps"][TRAIN_T - 1]
+    reports = [dict(i=r["step"], **{k: r[f"t{TRAIN_T - 1}/{k}"]
+                                    for k in ["loss"] + [f"loss_{p}"
+                                                         for p in PHYSICS]})
+               for r in mid["rows"] if f"t{TRAIN_T - 1}/loss" in r]
+    rows = int(variables["alive"].shape[0])
+    del params, variables, mid["final"]
+    torch.cuda.empty_cache()
+    rec = dict(
+        phase="ckpt_main_path", native_loader=native.available(),
+        checkpoint_every=CKPT_EVERY, saved_steps=saved,
+        steps_on_disk=on_disk, save_s=save_s,
+        load_s=[x for what, _, x in fin["calls"] + mid["calls"]
+                if what == "load"],
+        checkpoint_bytes=ckpt_bytes, rows=rows,
+        resume_final=dict(seconds=fin["seconds"], launches=fin["launches"],
+                          restored=[s for w, s, _ in fin["calls"]
+                                    if w == "load"],
+                          timesteps=int(res["means3D"].shape[0]),
+                          bitwise_equal=bitwise),
+        resume_mid=dict(seconds=mid["seconds"], launches=mid["launches"],
+                        restored_step=CKPT_MID, final_step=step,
+                        cursor=cursor, reports=reports,
+                        psnr_views_after=psnr_mid,
+                        psnr_views_mean_after=float(np.mean(psnr_mid)),
+                        psnr_views_cut_rects=cut,
+                        uninterrupted_psnr_views_mean_before=before[
+                            "psnr_views_mean_before"],
+                        uninterrupted_psnr_views_mean_after=before[
+                            "psnr_views_mean_after"]),
+        card=smi)
+    emit(rec)
+    # the steps after the restored one: the rest of t = 2
+    later = TRAIN_STEPS + (TRAIN_T - 1) * TRAIN_STEPS_LATER - CKPT_MID
+    checks = {
+        "saved steps": saved == CKPT_SAVED and on_disk == CKPT_SAVED[1:],
+        "final resume bitwise": len(shared) >= 3 and all(bitwise.values()),
+        "final resume ran no step": fin["launches"]["raster_bwd"] == 0,
+        "mid resume steps": mid["launches"]["raster_bwd"] == later
+        and cursor == {"t": TRAIN_T - 1, "i": TRAIN_STEPS_LATER}
+        and step == CKPT_SAVED[-1],
+        "mid resume losses finite": bool(reports) and np.isfinite(
+            [list(r.values()) for r in reports]).all(),
+        "mid resume PSNR": rec["resume_mid"]["psnr_views_mean_after"]
+        >= before["psnr_views_mean_before"] and cut == 0,
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"checkpoint / resume checks failed: {bad}")
+    return rec
+
+
+def phase_evaluate_main_path(train_rec, device, smi):
+    """`cli evaluate --max_timesteps 3 --max_cams 4` on `train_main_path`'s
+    params.npz and layout, then `cli evaluate-suite` with two pairs of it,
+    each with the launch counts set to 0 just before and read just after:
+    K1 once per view (12, and 24), K2 and K3 never. Every view is rendered
+    once more through the kernel and through the plain version on the
+    card: their rgb, alpha and exact depth must agree per pixel within the
+    oracle phase's tolerances, and the CLI's per-view PSNR and SSIM must
+    agree with the plain render's within 0.01 dB and 1e-4 (the quantized
+    key's depth against the exact one is reported for t = 0, camera 0). ms
+    per view: the CLI's wall time over its views, and the kernel render's
+    own."""
+    import contextlib
+    import io
+
+    import torch
+    from dynamic3dgaussians_tpu_torch import cli
+    from dynamic3dgaussians_tpu_torch.data import dataset as D
+    from dynamic3dgaussians_tpu_torch.eval import metrics as M
+    from dynamic3dgaussians_tpu_torch.eval import suite as S
+    from dynamic3dgaussians_tpu_torch.ops.rasterize import RasterConfig
+    from dynamic3dgaussians_tpu_torch.viz.export import load_params
+    from dynamic3dgaussians_tpu_torch.viz.render import (params_at_t,
+                                                         render_frame)
+    root, seq = train_rec["data_root"], train_rec["seq"]
+    params_path = os.path.join(train_rec["run_dir"], "params.npz")
+    common = ["--data_root", root, "--max_timesteps", str(TRAIN_T),
+              "--max_cams", str(TRAIN_CAMS), "--device", str(device)]
+    out_json = os.path.join(root, "evaluate.json")
+    suite_json = os.path.join(root, "evaluate_suite.json")
+    runs = {}
+    for name, argv in (
+            ("evaluate", ["evaluate", "--params", params_path, "--seq", seq,
+                          "--out", out_json]),
+            ("evaluate_suite", ["evaluate-suite", "--pairs",
+                                f"{seq}={params_path},{seq}={params_path}",
+                                "--out", suite_json])):
+        buf = io.StringIO()
+        zero_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv + common)
+        torch.cuda.synchronize()
+        runs[name] = dict(seconds=time.perf_counter() - t0,
+                          launches=read_launches(),
+                          printed=buf.getvalue().strip().splitlines())
+    with open(out_json) as fh:
+        out = json.load(fh)
+    with open(suite_json) as fh:
+        suite = json.load(fh)
+    n_views = len(out["rows"])
+    summary = json.loads(runs["evaluate"]["printed"][-1])
+    suite_line = json.loads(runs["evaluate_suite"]["printed"][-1])
+
+    stacked = load_params(params_path)
+    cli_rows = {(r["t"], r["cam"]): r for r in out["rows"]}
+    md = D.load_meta(root, seq)
+    render_ms = []
+    pixel_err = {"rgb": 0.0, "alpha": 0.0, "depth": 0.0}
+    d_psnr, d_ssim, depth_err = [], [], {}
+    for t in range(TRAIN_T):
+        frames = D.load_timestep(root, seq, md, t, device=device)
+        pt = params_at_t(stacked, t)
+        for f in frames[:TRAIN_CAMS]:
+            render_frame(pt, f["camera"], config=S.EVAL_RASTER,
+                         device=device)                       # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out_k = render_frame(pt, f["camera"], config=S.EVAL_RASTER,
+                                 device=device)
+            torch.cuda.synchronize()
+            render_ms.append((time.perf_counter() - t0) * 1e3)
+            out_p = render_frame(pt, f["camera"], config=S.EVAL_RASTER,
+                                 method="torch", device=device)
+            for key in pixel_err:
+                pixel_err[key] = max(pixel_err[key], float(
+                    (getattr(out_k, key) - getattr(out_p, key)).abs().max()))
+            rgb_p = torch.clamp(out_p.rgb, 0, 1)
+            row = cli_rows[(t, int(f["cam_id"]))]
+            d_psnr.append(abs(row["psnr"]
+                              - float(M.masked_psnr(rgb_p, f["im"]))))
+            d_ssim.append(abs(row["ssim"]
+                              - float(M.masked_ssim(rgb_p, f["im"]))))
+            if t == 0 and int(f["cam_id"]) == 0:
+                out_q = render_frame(pt, f["camera"], config=RasterConfig(
+                    depth_mode="quantized"), device=device)
+                depth_err = dict(quantized_vs_exact=float(
+                    (out_q.depth - out_k.depth).abs().max()))
+    rec = dict(phase="evaluate_main_path",
+               cmd="cli evaluate " + " ".join(common[2:-2]),
+               n_views=n_views, summary=summary, suite_mean=suite_line,
+               suite_scenes=list(suite["scenes"]),
+               launches=runs["evaluate"]["launches"],
+               launches_suite=runs["evaluate_suite"]["launches"],
+               cli_s=runs["evaluate"]["seconds"],
+               cli_ms_per_view=runs["evaluate"]["seconds"] * 1e3 / n_views,
+               suite_s=runs["evaluate_suite"]["seconds"],
+               render_ms_per_view=render_ms,
+               render_ms_per_view_median=float(np.median(render_ms)),
+               psnr_views=[r["psnr"] for r in out["rows"]],
+               psnr_kernel_vs_plain_max=max(d_psnr),
+               ssim_kernel_vs_plain_max=max(d_ssim),
+               pixel_err_kernel_vs_plain=pixel_err, depth_err=depth_err,
+               tol=dict(psnr_db=EVAL_PSNR_TOL_DB, ssim=EVAL_SSIM_TOL,
+                        rgb=ATOL_CHAN, alpha=ATOL_CHAN, depth=ATOL_DEPTH),
+               card=smi)
+    emit(rec)
+    want = TRAIN_T * TRAIN_CAMS
+    checks = {
+        "views": n_views == want and summary["n_views"] == want,
+        "evaluate launches": runs["evaluate"]["launches"] == {
+            "raster_fwd": want, "raster_bwd": 0, "sol_probe": 0},
+        "suite launches": runs["evaluate_suite"]["launches"] == {
+            "raster_fwd": 2 * want, "raster_bwd": 0, "sol_probe": 0},
+        "suite": suite_line["n_scenes"] == 2 and set(suite) == {
+            "scenes", "mean", "rows"},
+        "finite": np.isfinite([summary["psnr"], summary["ssim"]]).all(),
+        "psnr vs plain": max(d_psnr) <= EVAL_PSNR_TOL_DB,
+        "ssim vs plain": max(d_ssim) <= EVAL_SSIM_TOL,
+        "pixels vs plain": (pixel_err["rgb"] <= ATOL_CHAN
+                            and pixel_err["alpha"] <= ATOL_CHAN
+                            and pixel_err["depth"] <= ATOL_DEPTH),
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"evaluation checks failed: {bad}")
+    return rec
+
+
+def phase_tracking(train_rec, device, smi):
+    """`track_pixels` on `train_main_path`'s params.npz from camera 0 with
+    256 foreground pixels of its t = 0 image (one K1 launch, the counts
+    set to 0 just before and read just after): finite tracks, the kernel
+    path within 1e-3 px of the plain path, and the PCK@0.05 against the
+    layout's known rigid foreground motion (`synthetic.animate`) applied to
+    the lifted queries, beside the PCK of tracks that stay put."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.data import dataset as D
+    from dynamic3dgaussians_tpu_torch.data.synthetic import animate
+    from dynamic3dgaussians_tpu_torch.eval.metrics import pck
+    from dynamic3dgaussians_tpu_torch.eval.tracking import (
+        project_tracks, track_pixels, unproject_queries)
+    from dynamic3dgaussians_tpu_torch.viz.export import load_params
+    from dynamic3dgaussians_tpu_torch.viz.render import (params_at_t,
+                                                         render_frame)
+    root, seq = train_rec["data_root"], train_rec["seq"]
+    stacked = load_params(os.path.join(train_rec["run_dir"], "params.npz"))
+    md = D.load_meta(root, seq)
+    frame = D.load_timestep(root, seq, md, 0, device=device)[0]
+    cam = frame["camera"]
+    fg = np.flatnonzero(frame["seg"][..., 0].cpu().numpy().reshape(-1)
+                        > 0.5)
+    pick = np.random.RandomState(4).choice(fg, TRACK_QUERIES, replace=False)
+    px = np.stack([pick % W + 0.5, pick // W + 0.5], -1).astype(np.float32)
+    track_pixels(stacked, cam, px, device=device)             # warm
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tracks = track_pixels(stacked, cam, px, device=device)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    plain = track_pixels(stacked, cam, px, method="torch", device=device)
+    err = float((tracks - plain).abs().max())
+    with torch.no_grad():
+        out = render_frame(params_at_t(stacked, 0), cam, device=device)
+        q3 = unproject_queries(torch.as_tensor(px, device=device), out.depth,
+                               out.alpha, cam)
+        q3_np = q3.cpu().numpy().astype(np.float32)
+        gt = np.stack([animate({"means": q3_np, "n_fg": len(q3_np)}, t,
+                               TRAIN_T) for t in range(TRAIN_T)])
+        gt_px = project_tracks(torch.as_tensor(gt, device=device), cam)
+        pck_t = [float(pck(tracks[t], gt_px[t], (W, H), ratio=PCK_RATIO))
+                 for t in range(TRAIN_T)]
+        # the same score for tracks that do not move: what the trained
+        # motion adds to it
+        still = torch.as_tensor(px, device=device)
+        pck_still = [float(pck(still, gt_px[t], (W, H), ratio=PCK_RATIO))
+                     for t in range(TRAIN_T)]
+        moved = float((gt_px[-1] - gt_px[0]).norm(dim=-1).mean())
+        tracked = float((tracks[-1] - tracks[0]).norm(dim=-1).mean())
+        alpha_q = out.alpha.reshape(-1)[torch.as_tensor(pick,
+                                                         device=device)]
+    rec = dict(phase="tracking", queries=TRACK_QUERIES, camera=0,
+               timesteps=int(tracks.shape[0]), launches=launches, ms=ms,
+               max_abs_err_vs_plain_px=err, tol_px=TRACK_TOL_PX,
+               pck_ratio=PCK_RATIO, pck_by_t=pck_t,
+               pck_later_mean=float(np.mean(pck_t[1:])),
+               pck_still_by_t=pck_still,
+               gt_motion_px_mean=moved, track_motion_px_mean=tracked,
+               query_alpha_min=float(alpha_q.min()), card=smi)
+    emit(rec)
+    checks = {
+        "launches": launches == {"raster_fwd": 1, "raster_bwd": 0,
+                                 "sol_probe": 0},
+        "shape": tuple(tracks.shape) == (TRAIN_T, TRACK_QUERIES, 2),
+        "finite": bool(torch.isfinite(tracks).all()),
+        "kernel vs plain": err <= TRACK_TOL_PX,
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"tracking checks failed: {bad}")
+    return rec
+
+
+def phase_knn_approx(scene, device, smi):
+    """`knn_approx` and exact `knn` (20 neighbours) over the bench scene's
+    foreground points (seg 1, ~100k): seconds of each (one warm call
+    before), and the recall of the approximate neighbours against the
+    exact ones, which must be at least `KNN_RECALL_MIN`. Every approximate
+    neighbour is a valid point, and the j-th approximate distance is never
+    below the j-th exact one."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.ops.knn import knn, knn_approx
+    pts = torch.as_tensor(scene["means"][scene["seg_colors"][:, 0] > 0.5],
+                          device=device)
+    n = int(pts.shape[0])
+    times = {}
+    out = {}
+    for name, fn in (("approx", knn_approx), ("exact", knn)):
+        fn(pts[:4096], KNN_K)                                 # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = fn(pts, KNN_K)
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+    (ad, ai), (ed, ei) = out["approx"], out["exact"]
+    found = ai >= 0
+    hits = ((ai[:, :, None] == ei[:, None, :]).any(-1) & found)
+    recall = float(hits.sum()) / float((ei >= 0).sum())
+    below = float((ed - ad).clamp(min=0).max())
+    rec = dict(phase="knn_approx", n_points=n, k=KNN_K,
+               approx_s=times["approx"], exact_s=times["exact"],
+               speedup=times["exact"] / times["approx"], recall=recall,
+               recall_min=KNN_RECALL_MIN,
+               found_share=float(found.float().mean()),
+               approx_below_exact_max=below, card=smi)
+    emit(rec)
+    # the exact distances cancel |a|^2 + |b|^2 - 2 a.b terms up to ~12
+    if not (KNN_RECALL_MIN <= recall <= 1.0 and bool(found.all())
+            and below <= 1e-4 and bool(torch.isfinite(ad).all())):
+        raise AssertionError(f"knn_approx checks failed: {rec}")
     return rec
 
 
@@ -968,26 +1436,17 @@ def phase_probe_main_path(k3, device, smi):
     import io
 
     import torch
-    from dynamic3dgaussians_tpu_torch.ops.cuda.raster_bwd import \
-        composite_tiles_bwd
-    from dynamic3dgaussians_tpu_torch.ops.cuda.raster_fwd import \
-        composite_tiles
-    from dynamic3dgaussians_tpu_torch.ops.cuda.sol_probe import (KINDS,
-                                                                 sol_probe)
+    from dynamic3dgaussians_tpu_torch.ops.cuda.sol_probe import KINDS
     from dynamic3dgaussians_tpu_torch.tools import bench_sol
 
     buf = io.StringIO()
-    composite_tiles.launches = 0
-    composite_tiles_bwd.launches = 0
-    sol_probe.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         rc = bench_sol.main([])
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
-    launches = {"raster_fwd": composite_tiles.launches,
-                "raster_bwd": composite_tiles_bwd.launches,
-                "sol_probe": sol_probe.launches}
+    launches = read_launches()
     lines = [x for x in buf.getvalue().splitlines()
              if x.startswith("SOL_RESULT ")]
     result = json.loads(lines[-1][len("SOL_RESULT "):]) if lines else {}
@@ -1083,14 +1542,20 @@ def main() -> int:
     phase_oracle(device)
     phase_grad_golden(device)
     view_rec = phase_main_path(scene, device, smi)
-    train_rec = phase_train_main_path(scene, device, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        train_rec = phase_train_main_path(scene, device, smi, tmp)
+        phase_ckpt_main_path(train_rec, device, smi)
+        eval_rec = phase_evaluate_main_path(train_rec, device, smi)
+        track_rec = phase_tracking(train_rec, device, smi)
+    phase_knn_approx(scene, device, smi)
     probe_rec = phase_probe_main_path(k3, device, smi)
     b1, b2 = k1["bench", 8], k2["bench", 8]
     floor_rec(b1, b2, k3, train_rec["launches"], smi)
 
     # both render paths pass RGB + 3 seg channels: CV = 8
     paths = (("visualize", view_rec), ("train", train_rec),
-             ("probe", probe_rec))
+             ("probe", probe_rec), ("evaluate", eval_rec),
+             ("tracking", track_rec))
     by_path = {name: {p: r["launches"][name] for p, r in paths}
                for name in ("raster_fwd", "raster_bwd", "sol_probe")}
     wide = k3["stream_compute/card_wide"]

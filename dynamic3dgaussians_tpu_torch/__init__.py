@@ -13,8 +13,11 @@ CUDA and without an explicit device they raise (see `device.resolve_device`).
 
 Ported so far: the forward render of a trained scene (`cli visualize`),
 training over every timestep (`cli train`: the render's gradient through
-the backward kernel, losses, Adam, densification, compaction, the kNN graph
-and the RCM reorder at t = 0; forward extrapolation, the neighbour lookup
-and the physics losses at t > 0), and the speed-of-light probe of the tile
-walk (`tools/bench_sol.py`).
+the backward kernel, losses, Adam, densification, compaction, the exact or
+approximate kNN graph and the RCM reorder at t = 0; forward extrapolation,
+the neighbour lookup and the physics losses at t > 0; full-state
+checkpoints and resume; images streamed by the native prefetching loader),
+the splat PLY codec (`native.py`, `viz/export.py`), evaluation and pixel
+tracking (`eval/`, `cli evaluate`, `cli evaluate-suite`), and the
+speed-of-light probe of the tile walk (`tools/bench_sol.py`).
 """

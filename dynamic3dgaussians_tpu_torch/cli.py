@@ -1,9 +1,14 @@
 """Command-line entry points of the port.
 
   python -m dynamic3dgaussians_tpu_torch.cli train --data_root data \
-      --seq cmu_bike --exp exp1 [--timesteps 3] [--device cuda]
+      --seq cmu_bike --exp exp1 [--timesteps 3] [--checkpoint_every N] \
+      [--resume] [--device cuda]
   python -m dynamic3dgaussians_tpu_torch.cli visualize \
       --params output/exp1/seq/params.npz [--out orbit.gif] [--device cuda]
+  python -m dynamic3dgaussians_tpu_torch.cli evaluate \
+      --params output/exp1/seq/params.npz --data_root data --seq cmu_bike
+  python -m dynamic3dgaussians_tpu_torch.cli evaluate-suite \
+      --pairs seqA=a/params.npz,seqB=b/params.npz --data_root data
 
 `train` fits every timestep of a sequence in the reference data layout
 (or the built-in synthetic scene), the first from the initial point cloud
@@ -11,9 +16,14 @@ and each later one from its predecessor under the physics losses, and
 writes the reference's stacked `<output>/<exp>/<seq>/params.npz`, with
 `cfg_args.json` and `metrics.jsonl` beside it; its flags are the
 reference's `train` flags, plus `--time_steps`, which logs each step's
-wall time. Checkpoints (`--checkpoint_every`) are not ported and raise.
-`visualize` orbit-renders a stacked params.npz to a GIF. Both run on `cuda`
-unless `--device` says otherwise.
+wall time. `--checkpoint_every N` saves the full training state every N
+steps under `<output>/<exp>/<seq>/ckpt`, and `--resume` restarts from the
+latest one there. On a data root the images stream through the native
+prefetching loader when its library builds (`native.py`).
+`visualize` orbit-renders a stacked params.npz to a GIF. `evaluate` renders
+every (timestep, camera) view of a trained sequence and prints its mean
+PSNR and SSIM as JSON; `evaluate-suite` does so for many (seq, params.npz)
+pairs. All run on `cuda` unless `--device` says otherwise.
 """
 
 from __future__ import annotations
@@ -105,6 +115,7 @@ def cmd_train(args):
     with open(os.path.join(out_dir, "cfg_args.json"), "w") as f:
         f.write(cfg.to_json())
 
+    loader = None
     if args.synthetic:
         from dynamic3dgaussians_tpu_torch.data import synthetic
         scene = synthetic.make_gt_scene()
@@ -112,13 +123,16 @@ def cmd_train(args):
             scene, cfg.num_timesteps, num_cams=args.num_cams, device=dev)
         pt_cld = synthetic.init_point_cloud(scene)
     else:
+        from dynamic3dgaussians_tpu_torch import native
         from dynamic3dgaussians_tpu_torch.data import dataset as D
         md = D.load_meta(args.data_root, args.seq)
         cfg.num_timesteps = min(cfg.num_timesteps, len(md["fn"]))
+        loader = native.FileLoader() if native.available() else None
 
-        def dataset(t, _md=md):     # per-timestep stream
+        def dataset(t, _md=md):     # per-timestep stream, t + 1 prefetched
             return D.load_timestep(args.data_root, args.seq, _md, t,
-                                   load_depth=args.load_depth, device=dev)
+                                   load_depth=args.load_depth, loader=loader,
+                                   prefetch_next=True, device=dev)
 
         pt_cld = D.load_init_point_cloud(args.data_root, args.seq)
         w2c = D.scene_w2c_stack(md)
@@ -186,6 +200,8 @@ def cmd_train(args):
     path = save_params(output_params, out_dir)
     print(f"saved {path}")
     logger.close()
+    if loader is not None:
+        loader.close()
     return path
 
 
@@ -202,6 +218,46 @@ def cmd_visualize(args):
     save_gif(frames, out, fps=args.fps)
     print(f"saved {out}")
     return frames
+
+
+def cmd_evaluate(args):
+    from dynamic3dgaussians_tpu_torch.eval.suite import evaluate_sequence
+    from dynamic3dgaussians_tpu_torch.viz.export import load_params
+
+    stacked = load_params(args.params)
+    summary, rows = evaluate_sequence(stacked, args.data_root, args.seq,
+                                      max_timesteps=args.max_timesteps,
+                                      max_cams=args.max_cams,
+                                      device=args.device)
+    print(json.dumps(summary))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"mean_psnr": summary["psnr"],
+                       "mean_ssim": summary["ssim"], "rows": rows}, f,
+                      indent=2)
+    return summary
+
+
+def cmd_evaluate_suite(args):
+    from dynamic3dgaussians_tpu_torch.eval.suite import evaluate_suite
+
+    pairs = []
+    for item in args.pairs.split(","):
+        seq, _, path = item.partition("=")
+        if not path:
+            raise SystemExit(f"--pairs item '{item}' must be seq=params.npz")
+        pairs.append((seq, path))
+    result = evaluate_suite(pairs, args.data_root,
+                            max_timesteps=args.max_timesteps,
+                            max_cams=args.max_cams, out_path=args.out,
+                            device=args.device)
+    for seq, sm in result["scenes"].items():
+        print(f"{seq}: psnr {sm['psnr']:.2f} ssim {sm['ssim']:.4f}"
+              + (f" absrel {sm['depth_abs_rel']:.4f}"
+                 if "depth_abs_rel" in sm else ""))
+    print(json.dumps({"mean": result["mean"],
+                      "n_scenes": len(result["scenes"])}))
+    return result
 
 
 def _add_device_arg(p: argparse.ArgumentParser):
@@ -228,8 +284,7 @@ def main(argv=None):
     p.add_argument("--num_cams", type=int, default=6)
     p.add_argument("--load_depth", action="store_true")
     p.add_argument("--wandb", action="store_true")
-    p.add_argument("--checkpoint_every", type=int, default=0,
-                   help="not ported yet: any value > 0 raises")
+    p.add_argument("--checkpoint_every", type=int, default=0)
     p.add_argument("--resume", action="store_true")
     p.add_argument("--time_steps", action="store_true",
                    help="wait for the device after every step and log the "
@@ -253,6 +308,27 @@ def main(argv=None):
                         "per-frame sort, is ported)")
     _add_device_arg(p)
     p.set_defaults(fn=cmd_visualize)
+
+    p = sub.add_parser("evaluate", help="PSNR/SSIM vs dataset images")
+    p.add_argument("--params", type=str, required=True)
+    p.add_argument("--data_root", type=str, required=True)
+    p.add_argument("--seq", type=str, required=True)
+    p.add_argument("--max_timesteps", type=int, default=10)
+    p.add_argument("--max_cams", type=int, default=4)
+    p.add_argument("--out", type=str, default=None)
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_evaluate)
+
+    p = sub.add_parser("evaluate-suite",
+                       help="PSNR/SSIM table over many sequences")
+    p.add_argument("--pairs", type=str, required=True,
+                   help="comma list of seq=params.npz")
+    p.add_argument("--data_root", type=str, required=True)
+    p.add_argument("--max_timesteps", type=int, default=10)
+    p.add_argument("--max_cams", type=int, default=4)
+    p.add_argument("--out", type=str, default=None)
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_evaluate_suite)
 
     args = parser.parse_args(argv)
     args.fn(args)

@@ -2,8 +2,9 @@
 
 The port never imports the JAX package: callers hand over plain values,
 e.g. `params_from_jax(jax.tree.map(np.asarray, params), "cuda")`, numpy
-copies of `variables` and of the Adam state's fields, and any object with
-the reference RasterConfig's attributes.
+copies of `variables` and of the Adam state's fields, a restored
+checkpoint tree as numpy, and any object with the reference RasterConfig's
+attributes.
 """
 
 from __future__ import annotations
@@ -73,6 +74,20 @@ def adam_state_from_jax(mu: Dict[str, np.ndarray], nu: Dict[str, np.ndarray],
     return AdamState(mu=params_from_jax(mu, dev), nu=params_from_jax(nu, dev),
                      step=torch.tensor(int(np.asarray(step)),
                                        dtype=torch.int32, device=dev))
+
+
+def checkpoint_from_jax(tree: Dict, device: DeviceLike = None):
+    """The reference's restored checkpoint tree, as numpy ({params, opt_mu,
+    opt_nu, opt_step, variables, cursor}, the layout of its
+    `train/checkpoint.py::_to_pytree`) -> the port's (params, opt_state,
+    variables, cursor) on `device` (default `cuda`), ready for
+    `CheckpointManager.save`."""
+    dev = resolve_device(device)
+    cursor = {k: int(np.asarray(v)) for k, v in tree["cursor"].items()}
+    return (params_from_jax(tree["params"], dev),
+            adam_state_from_jax(tree["opt_mu"], tree["opt_nu"],
+                                tree["opt_step"], dev),
+            variables_from_jax(tree["variables"], dev), cursor)
 
 
 def raster_config_from_jax(cfg) -> RasterConfig:

@@ -1,7 +1,7 @@
 """Reader of the Dynamic3DGaussians on-disk data layout.
 
-Port of `dynamic3dgaussians_tpu/data/dataset.py` (the synchronous reader;
-the native prefetching loader is not ported yet):
+Port of `dynamic3dgaussians_tpu/data/dataset.py`, with the native
+prefetching loader (`native.FileLoader`) as an option:
 
   <root>/<seq>/train_meta.json     md["fn"|"hw"|"k"|"w2c"][t][c]
   <root>/<seq>/ims/<fn>            RGB jpg/png
@@ -15,6 +15,7 @@ the caller names (default `cuda`).
 
 from __future__ import annotations
 
+import io
 import json
 import os
 from typing import Dict, List, Optional
@@ -26,9 +27,11 @@ from dynamic3dgaussians_tpu_torch.device import DeviceLike, resolve_device
 from dynamic3dgaussians_tpu_torch.ops.camera import make_camera
 
 
-def _load_image(path: str) -> np.ndarray:
+def _load_image(path: str, loader=None) -> np.ndarray:
+    """An image as float32 in [0, 1]; its bytes from `loader` when given."""
     from PIL import Image
-    with Image.open(path) as img:
+    src = io.BytesIO(loader.take(path)) if loader is not None else path
+    with Image.open(src) as img:
         return np.asarray(img, dtype=np.float32) / 255.0
 
 
@@ -56,16 +59,18 @@ def load_init_point_cloud(root: str, seq: str,
 def load_timestep(root: str, seq: str, md: Dict, t: int,
                   cameras: Optional[List[int]] = None,
                   load_depth: bool = False, loader=None,
+                  prefetch_next: bool = False,
                   device: DeviceLike = None) -> List[Dict]:
     """The trainer's camera datapoints of timestep t, on `device`.
 
-    `loader` is the reference's native prefetcher, not ported: only None
-    is accepted.
+    `loader`: optional `native.FileLoader`; the image bytes come from its
+    background threads. With `prefetch_next`, timestep t + 1's files are
+    queued before t's are decoded, so the disk reads of t + 1 overlap the
+    training steps of t.
     """
-    if loader is not None:
-        raise NotImplementedError("the native prefetching loader is not "
-                                  "ported yet; pass loader=None")
     dev = resolve_device(device)
+    if loader is not None and prefetch_next and t + 1 < len(md["fn"]):
+        loader.prefetch(timestep_paths(root, seq, md, t + 1))
     frames = []
     cam_ids = cameras if cameras is not None else range(len(md["fn"][t]))
     for c in cam_ids:
@@ -73,9 +78,9 @@ def load_timestep(root: str, seq: str, md: Dict, t: int,
         k = np.asarray(md["k"][t][c], np.float64)
         w2c = np.asarray(md["w2c"][t][c], np.float64)
         fn = md["fn"][t][c]
-        im = _load_image(os.path.join(root, seq, "ims", fn))
+        im = _load_image(os.path.join(root, seq, "ims", fn), loader)
         seg = _load_image(os.path.join(root, seq, "seg",
-                                       fn.replace(".jpg", ".png")))
+                                       fn.replace(".jpg", ".png")), loader)
         if seg.ndim == 3:
             seg = seg[..., 0]
         seg = (seg > 0.5).astype(np.float32)

@@ -12,14 +12,17 @@ DeviceLike = Optional[Union[str, torch.device]]
 
 @contextlib.contextmanager
 def no_tf32():
-    """Run float32 matmuls at full float32 on the card (TF32 off), and put
-    the caller's setting back afterwards."""
-    saved = torch.backends.cuda.matmul.allow_tf32
+    """Run float32 matmuls and convolutions at full float32 on the card
+    (TF32 off), and put the caller's settings back afterwards."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:

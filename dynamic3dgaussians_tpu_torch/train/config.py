@@ -15,7 +15,9 @@ unchanged. What the port makes of the fields that exist for the TPU:
   * steps_per_call > 1 runs the same steps one at a time: the reference's
     multi-step window only amortises TPU dispatch, and the camera stream is
     the same either way.
-  * knn_method "approx" and neighbor_window are not ported and raise.
+  * knn_method "approx" builds the graph with `ops/knn.py::knn_approx`;
+    neighbor_window (the TPU's windowed neighbour fetch) is not ported and
+    raises.
 """
 
 from __future__ import annotations

@@ -23,9 +23,26 @@ live-pair count of the sort; the rect-drop count is summed on the device
 and read only at report steps, and the metrics stay tensors until a
 callback reads them.
 
-Not ported: checkpoints (`checkpoint_dir`) raise. The reference's on-device
-multi-step window (`steps_per_call`) only amortises TPU dispatch; here the
-same steps run one at a time.
+Checkpoints follow the reference's schedule: with `checkpoint_dir` and
+`checkpoint_every`, the full state (parameters, Adam state, variables and
+the cursor {t, i}) is saved after every `checkpoint_every`-th global step,
+before that step's densify and opacity-reset block, and once more at the
+end, at global step + 1 with the cursor {t: last, i: num_iters}. `resume`
+restores the latest step: the timesteps before its t are skipped (the
+returned per-timestep parameters start at that t, as in the reference), its
+t does not run `initialize_per_timestep` again, and its loop starts at
+i + 1, so a step saved at i never runs the densify block of i. As in the
+reference, what the cursor does not hold restarts: the camera stream
+(numpy `RandomState(cfg.seed)`) and the densify noise (`torch.Generator`
+seeded with `cfg.seed`) start from the seed, the camera permutation
+(`todo`) starts empty, and K starts at the caller's `cfg`, since an
+escalated K lives only in the run's local config. A mid-run resume is
+therefore not the uninterrupted run; a resume from the final step returns
+its state unchanged.
+
+The reference's on-device multi-step window (`steps_per_call`) only
+amortises TPU dispatch; here the same steps run one at a time, and the
+saved steps are the same.
 """
 
 from __future__ import annotations
@@ -41,7 +58,7 @@ import torch.nn.functional as F
 from dynamic3dgaussians_tpu_torch.device import DeviceLike, resolve_device
 from dynamic3dgaussians_tpu_torch.models import gaussians as G
 from dynamic3dgaussians_tpu_torch.ops import quat
-from dynamic3dgaussians_tpu_torch.ops.knn import knn
+from dynamic3dgaussians_tpu_torch.ops.knn import knn, knn_approx
 from dynamic3dgaussians_tpu_torch.ops.neighbor import (EdgeReduction,
                                                        build_edge_reduction,
                                                        locality_order,
@@ -50,6 +67,7 @@ from dynamic3dgaussians_tpu_torch.ops.rasterize import RasterConfig, render
 from dynamic3dgaussians_tpu_torch.train import densify as densify_mod
 from dynamic3dgaussians_tpu_torch.train import losses as L
 from dynamic3dgaussians_tpu_torch.train import optim
+from dynamic3dgaussians_tpu_torch.train.checkpoint import CheckpointManager
 from dynamic3dgaussians_tpu_torch.train.config import TrainConfig
 
 MAX_TILES_PER_GAUSSIAN = 64    # K escalation stops here
@@ -244,9 +262,9 @@ def initialize_post_first_timestep(params: Dict, variables: Dict,
 
     Returns (params, variables, opt_state).
     """
-    if cfg.knn_method != "exact":
+    if cfg.knn_method not in ("exact", "approx"):
         raise NotImplementedError(f"knn_method {cfg.knn_method!r} is not "
-                                  f"ported (only 'exact')")
+                                  f"one of 'exact', 'approx'")
     if cfg.neighbor_window:
         raise NotImplementedError("neighbor_window (the TPU windowed fetch) "
                                   "is not ported")
@@ -255,7 +273,8 @@ def initialize_post_first_timestep(params: Dict, variables: Dict,
     alive = variables["alive"]
     is_fg = (params["seg_colors"][:, 0] > 0.5) & alive
     t0 = time.perf_counter()
-    sq_dist, idx = knn(params["means3D"], cfg.num_knn, mask=is_fg)
+    knn_fn = knn_approx if cfg.knn_method == "approx" else knn
+    sq_dist, idx = knn_fn(params["means3D"], cfg.num_knn, mask=is_fg)
     sq_dist = torch.where(idx >= 0, sq_dist, torch.zeros_like(sq_dist))
     idx_h = idx.cpu().numpy()
     timings["knn_s"] = time.perf_counter() - t0
@@ -325,16 +344,15 @@ def train(dataset, cfg: TrainConfig, pt_cld: np.ndarray,
     steps, on_iter(t, i, k) after every step and its host actions (k: the
     emission slots per gaussian the step rendered with), on_densify(t, i,
     stats), on_grow_tiles(t, i, new_k), on_graph(t, timings) after the kNN
-    graph, on_timestep(t, params, variables). Runs on `device` (default
-    `cuda`).
+    graph, on_timestep(t, params, variables). checkpoint_dir /
+    checkpoint_every: full-state checkpoints every `checkpoint_every`
+    global steps (0: only the final one); `resume` restarts from the latest
+    (see the module docstring). Runs on `device` (default `cuda`).
 
     Returns (output_params, params, variables): the host checkpoints per
-    timestep and the final device state.
+    timestep (from the resumed timestep on, after a resume) and the final
+    device state.
     """
-    if checkpoint_dir:
-        raise NotImplementedError("training checkpoints (checkpoint_dir, "
-                                  "resume) are not ported yet")
-    del checkpoint_every, resume
     dev = resolve_device(device)
     callbacks = callbacks or {}
     rng = np.random.RandomState(cfg.seed)
@@ -349,6 +367,16 @@ def train(dataset, cfg: TrainConfig, pt_cld: np.ndarray,
     rcfg = raster_config(cfg)
     train_step = make_train_step(cfg, rcfg)
 
+    ckpt_mgr = None
+    resume_t, resume_i, global_step = -1, -1, 0
+    if checkpoint_dir:
+        ckpt_mgr = CheckpointManager(checkpoint_dir)
+        if resume:
+            restored = ckpt_mgr.load(device=dev)
+            if restored is not None:
+                global_step, params, opt_state, variables, cursor = restored
+                resume_t, resume_i = cursor["t"], cursor["i"]
+
     def lr_tree(frozen: bool):
         lrs = {}
         for k in params:
@@ -362,10 +390,14 @@ def train(dataset, cfg: TrainConfig, pt_cld: np.ndarray,
 
     get_t = dataset if callable(dataset) else dataset.__getitem__
     output_params = []
+    num_iters = (cfg.iters_first_timestep if cfg.num_timesteps == 1
+                 else cfg.iters_per_timestep)
     for t in range(cfg.num_timesteps):
         is_initial = t == 0
+        if t < resume_t:
+            continue           # the resumed step lies past this timestep
         data_t = get_t(t)
-        if not is_initial:
+        if not is_initial and t != resume_t:
             params, variables, opt_state = initialize_per_timestep(
                 params, variables, opt_state)
         num_iters = (cfg.iters_first_timestep if is_initial
@@ -387,7 +419,8 @@ def train(dataset, cfg: TrainConfig, pt_cld: np.ndarray,
                 row.append(int(todo.pop()))
             return row
 
-        for i in range(num_iters):
+        start_i = resume_i + 1 if t == resume_t else 0
+        for i in range(start_i, num_iters):
             k_step = cfg.raster.max_tiles_per_gaussian
             picks = [data_t[c] for c in pick_cams()]
             batch = picks[0] if k_cams == 1 else picks
@@ -395,6 +428,12 @@ def train(dataset, cfg: TrainConfig, pt_cld: np.ndarray,
                 params, opt_state, variables, batch, lrs, is_initial)
             if cfg.grow_tiles:
                 rect_drop_accum = rect_drop_accum + metrics["n_dropped_rect"]
+            global_step += 1
+            if ckpt_mgr and checkpoint_every and \
+                    global_step % checkpoint_every == 0:
+                # before this step's densify block, as the reference saves
+                ckpt_mgr.save(global_step, params, opt_state, variables,
+                              {"t": t, "i": i})
             if is_initial and i <= cfg.densify_end:
                 if i >= cfg.densify_start and i % cfg.densify_every == 0:
                     params, variables, opt_state, dstats = \
@@ -442,4 +481,8 @@ def train(dataset, cfg: TrainConfig, pt_cld: np.ndarray,
         output_params.append(params_to_cpu(params, variables, is_initial))
         if "on_timestep" in callbacks:
             callbacks["on_timestep"](t, params, variables)
+    if ckpt_mgr:
+        ckpt_mgr.save(global_step + 1, params, opt_state, variables,
+                      {"t": cfg.num_timesteps - 1, "i": num_iters}, wait=True)
+        ckpt_mgr.close()
     return output_params, params, variables

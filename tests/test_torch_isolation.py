@@ -67,7 +67,9 @@ def test_port_imports_no_jax():
                 "train.trainer", "data.dataset", "data.synthetic",
                 "utils.logging", "viz.render", "viz.export", "cli",
                 "convert", "_build", "ops.cuda.sol_probe",
-                "tools.bench_sol"):
+                "tools.bench_sol", "native", "train.checkpoint",
+                "eval.metrics", "eval.lpips", "eval.tracking",
+                "eval.suite"):
         assert f"dynamic3dgaussians_tpu_torch.{mod}" in names
     assert int(count) == len(names)
 
@@ -89,7 +91,9 @@ def _tiny():
 
 @pytest.mark.parametrize("entry", ["resolve_device", "render",
                                    "render_frame", "orbit_render", "cli",
-                                   "cli_train", "train", "bench_sol"])
+                                   "cli_train", "train", "bench_sol",
+                                   "evaluate", "evaluate_suite",
+                                   "track_pixels"])
 def test_no_device_without_cuda_raises(monkeypatch, tmp_path, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     params, cam = _tiny()
@@ -111,6 +115,17 @@ def test_no_device_without_cuda_raises(monkeypatch, tmp_path, entry):
         elif entry == "bench_sol":
             from dynamic3dgaussians_tpu_torch.tools import bench_sol
             bench_sol.main(["--small"])
+        elif entry in ("evaluate", "evaluate_suite"):
+            path = texp.save_params([params], str(tmp_path))
+            args = (["evaluate", "--params", path, "--seq", "seq"]
+                    if entry == "evaluate" else
+                    ["evaluate-suite", "--pairs", f"seq={path}"])
+            cli.main(args + ["--data_root", str(tmp_path)])
+        elif entry == "track_pixels":
+            from dynamic3dgaussians_tpu_torch.eval.tracking import \
+                track_pixels
+            stacked = {k: v[None] for k, v in params.items()}
+            track_pixels(stacked, cam, np.zeros((1, 2), np.float32))
         elif entry == "cli_train":
             cli.main(["train", "--synthetic", "--timesteps", "1",
                       "--iters_first", "1", "--output", str(tmp_path)])
@@ -121,3 +136,62 @@ def test_no_device_without_cuda_raises(monkeypatch, tmp_path, entry):
                                  np.ones((8, 1), np.float32)], axis=1)
             train([[]], TrainConfig(num_timesteps=1), pt,
                   np.eye(4)[None].repeat(2, 0))
+
+
+_NATIVE_PROBE = r"""
+import os, sys
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name == "dynamic3dgaussians_tpu" or name.startswith(
+                "dynamic3dgaussians_tpu."):
+            raise ImportError(f"the port imported {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+from dynamic3dgaussians_tpu_torch import native
+import numpy as np
+assert native.available()
+out = sys.argv[1]
+n = 5
+z = np.zeros((n, 3), np.float32)
+native.ply_write(out, z, z, np.zeros(n, np.float32), z,
+                 np.zeros((n, 4), np.float32))
+assert native.ply_read(out)["means3D"].shape == (n, 3)
+with native.FileLoader() as ld:
+    ld.prefetch([out])
+    assert ld.take(out) == open(out, "rb").read()
+print(native.library_path())
+"""
+
+
+def test_native_builds_its_own_library_and_leaves_native_alone(tmp_path):
+    """The port's native binding never loads the JAX package's native.py
+    and never writes under native/: its library is built under build/.
+    Run in a copy of the port and of native/src (no JAX package beside
+    them), so that no other test's build of native/ shows in the check."""
+    import shutil
+    root = tmp_path / "repo"
+    shutil.copytree(os.path.join(REPO, "dynamic3dgaussians_tpu_torch"),
+                    root / "dynamic3dgaussians_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copytree(os.path.join(REPO, "native", "src"),
+                    root / "native" / "src")
+
+    def snapshot():
+        out = {}
+        for base, _, files in os.walk(root / "native"):
+            for f in files:
+                st = os.stat(os.path.join(base, f))
+                out[os.path.join(base, f)] = (st.st_size, st.st_mtime_ns)
+        return out
+
+    before = snapshot()
+    out = subprocess.run([sys.executable, "-c", _NATIVE_PROBE,
+                          str(tmp_path / "x.ply")], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    lib = out.stdout.strip().splitlines()[-1]
+    assert lib.startswith(str(root / "build" / "native") + os.sep)
+    assert os.path.exists(lib)
+    assert snapshot() == before

@@ -557,8 +557,16 @@ def test_cli_train_on_reference_layout(tmp_path):
 
 
 def test_train_refuses_later_slices(world):
-    """Checkpoints (`checkpoint_dir`, resume) are not ported and raise."""
+    """What stays unported raises: the TPU's windowed neighbour fetch
+    (`neighbor_window`) and a kNN method other than exact or approx.
+    (Checkpoints, refused here before, are ported: see
+    tests/test_torch_checkpoint.py.)"""
     _, tds, pt, w2c = world
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        ttr.train(tds, tconf.TrainConfig(num_timesteps=1), pt, w2c,
-                  checkpoint_dir="ckpt", device="cpu")
+    for over, match in (({"neighbor_window": True}, "neighbor_window"),
+                        ({"knn_method": "kdtree"}, "knn_method")):
+        cfg = tconf.TrainConfig(num_timesteps=1, iters_first_timestep=1,
+                                densify_start=10 ** 9, capacity=1024,
+                                raster=tconf.RasterSettings(chunk=64),
+                                **over)
+        with pytest.raises(NotImplementedError, match=match):
+            ttr.train(tds, cfg, pt, w2c, device="cpu")
