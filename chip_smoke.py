@@ -22,7 +22,16 @@ checkpoint (bitwise its last timestep) and from its step 45 (mid t = 2);
 `cli evaluate` and `cli evaluate-suite` on its params.npz (K1 once per
 view, each view's pixels, PSNR and SSIM held against the plain path); pixel
 tracking of 256 foreground pixels (one K1 launch, against the plain path
-and the layout's known motion); the approximate kNN at the scene's ~100k
+and the layout's known motion); the serving path -- cached-order playback
+at the bench view (a key frame, then cached frames at small camera steps:
+K1 once per frame, none in the key frame's sort; a fresh cache against the
+exact render, a stale one by PSNR, the plain K1 on its table; key, cached
+and exact frame times) and `cli visualize --resort-every 8`, and the
+viewer of `cli view` over the trained params.npz (HTTP page, meta and
+frames in every mode, the playback caches it builds, the network GUI
+reached by its client and by the browser bridge); the plain "tiled"
+render method against the kernel path (image and gradients) with its drop
+counters at the bench view; the approximate kNN at the scene's ~100k
 foreground points; and the probe's entry point `tools/bench_sol.py` --
 and checks that each went through its kernels. Prints one JSON object
 per phase; the last line is `{"ok": true, "device": {...}}`. Any failure
@@ -306,19 +315,25 @@ def k2_work(cells, rec_t, n_tiles, n_val):
     return out
 
 
+def bench_camera(device, dx=0.0):
+    """The bench view (640x360, f = 500, z = 6), shifted by dx along x."""
+    from dynamic3dgaussians_tpu_torch.ops.camera import make_camera
+    w2c = np.eye(4)
+    w2c[2, 3] = 6.0
+    w2c[0, 3] = dx
+    return make_camera(W, H, [[F, 0, W / 2], [0, F, H / 2], [0, 0, 1]], w2c,
+                       device=device)
+
+
 def bench_records(scene, extra_key, device, k=8):
     """The bench view's record table (640x360, f = 500, z = 6) at
     CV = 3 + extra + 2, rounded up to 8, with K = `k` emission slots."""
     import torch
-    from dynamic3dgaussians_tpu_torch.ops.camera import make_camera
     from dynamic3dgaussians_tpu_torch.ops.projection import project
     from dynamic3dgaussians_tpu_torch.ops.sorted_raster import \
         sorted_records
 
-    w2c = np.eye(4)
-    w2c[2, 3] = 6.0
-    cam = make_camera(W, H, [[F, 0, W / 2], [0, F, H / 2], [0, 0, 1]], w2c,
-                      device=device)
+    cam = bench_camera(device)
     t = {k: torch.as_tensor(v, device=device) for k, v in scene.items()}
     with torch.no_grad():
         proj = project(t["means"], t["scales"], t["quats"], cam)
@@ -571,15 +586,15 @@ def phase_oracle(device):
         raise AssertionError(f"kernel path disagrees with the oracle: {rec}")
 
 
-def phase_main_path(scene, device, smi):
-    """`cli visualize` on a 3-timestep 200k checkpoint, 4 frames."""
-    import torch
-    from dynamic3dgaussians_tpu_torch import cli
-    from dynamic3dgaussians_tpu_torch.ops.camera import orbit_cameras
-    from dynamic3dgaussians_tpu_torch.viz.export import (load_params,
-                                                         save_params)
-    from dynamic3dgaussians_tpu_torch.viz.render import (params_at_t,
-                                                         render_frame)
+MAIN_FRAMES, MAIN_RADIUS = 4, 6.0
+MAIN_FLAGS = ["--frames", str(MAIN_FRAMES), "--width", str(W), "--height",
+              str(H), "--focal", str(F), "--radius", str(MAIN_RADIUS)]
+
+
+def main_checkpoint(scene, out_dir):
+    """The bench scene as a 3-timestep params.npz under `out_dir` (small
+    per-timestep drift of the means); returns its path."""
+    from dynamic3dgaussians_tpu_torch.viz.export import save_params
     rng = np.random.RandomState(2)
     o = scene["opac"]
     t0 = {"means3D": scene["means"], "rgb_colors": scene["colors"],
@@ -590,26 +605,41 @@ def phase_main_path(scene, device, smi):
           "cam_m": np.zeros((5, 3), np.float32),
           "cam_c": np.zeros((5, 3), np.float32)}
     steps = [t0]
-    for _ in range(2):   # small per-timestep drift of the means
+    for _ in range(2):
         prev = steps[-1]
         steps.append({"means3D": (prev["means3D"] + rng.normal(
             0, 0.01, prev["means3D"].shape)).astype(np.float32),
             "rgb_colors": t0["rgb_colors"],
             "unnorm_rotations": t0["unnorm_rotations"]})
-    n_frames, radius = 4, 6.0
+    return save_params(steps, out_dir)
+
+
+def run_visualize(path, gif, extra_flags=()):
+    """`cli visualize` of `path` into `gif` with the launch counts set to 0
+    just before and read just after: (seconds, launches, gif bytes)."""
+    import torch
+    from dynamic3dgaussians_tpu_torch import cli
+    zero_launches()
+    t_start = time.perf_counter()
+    cli.main(["visualize", "--params", path, "--out", gif] + MAIN_FLAGS
+             + list(extra_flags))
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t_start, read_launches(),
+            os.path.getsize(gif))
+
+
+def phase_main_path(scene, device, smi):
+    """`cli visualize` on a 3-timestep 200k checkpoint, 4 frames."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.ops.camera import orbit_cameras
+    from dynamic3dgaussians_tpu_torch.viz.export import load_params
+    from dynamic3dgaussians_tpu_torch.viz.render import (params_at_t,
+                                                         render_frame)
+    n_frames, radius, flags = MAIN_FRAMES, MAIN_RADIUS, MAIN_FLAGS
     with tempfile.TemporaryDirectory() as tmp:
-        path = save_params(steps, tmp)
-        gif = os.path.join(tmp, "orbit.gif")
-        flags = ["--frames", str(n_frames), "--width", str(W),
-                 "--height", str(H), "--focal", str(F),
-                 "--radius", str(radius)]
-        zero_launches()
-        t_start = time.perf_counter()
-        cli.main(["visualize", "--params", path, "--out", gif] + flags)
-        torch.cuda.synchronize()
-        cli_s = time.perf_counter() - t_start
-        launches = read_launches()
-        gif_bytes = os.path.getsize(gif)
+        path = main_checkpoint(scene, tmp)
+        cli_s, launches, gif_bytes = run_visualize(
+            path, os.path.join(tmp, "orbit.gif"))
         stacked = load_params(path)
     if launches["raster_fwd"] != n_frames or launches["raster_bwd"] or \
             launches["sol_probe"]:
@@ -1478,6 +1508,644 @@ def phase_probe_main_path(k3, device, smi):
     return rec
 
 
+# Cached-order playback (`playback_main_path`), the viewer's case: one key
+# frame at the bench view, then cached frames at small camera steps at one
+# timestep. A fresh cache differs from the exact render in two ways, held
+# apart. (1) The f16 transport of the conic, opacity and channel rows:
+# held against K1 on the same records in the same order in float32, at
+# tests/test_playback.py's bounds (one 8-bit quantum; depth 2e-2 + 1e-3
+# relative). f16 opacity can move a record's alpha across the 1/255 gate,
+# which adds or drops up to 1/255 of weight at that pixel: there
+# (`gate_flips`) the bounds grow by 1/255 (depth: 1/255 of PB_Z_MAX,
+# beyond the farthest point of the bench cube at z = 6). (2) The order:
+# the cache's float-bits key orders depth only to 2^-13 relative at this
+# grid (21 key bits), the exact render's affine key to 2^-21 of the depth
+# range, so near-equal depths in a tile may composite in another order
+# (ROADMAP.md §3). The order itself is checked exactly: the cache's
+# segments equal the exact render's, each tile holds the same gaussian
+# ids, and the float-bits key never decreases along the cached order.
+# Alpha does not depend on the order and is held at (1)'s bound against
+# the exact render; rgb also by PSNR against the exact render at the stale
+# cache's bound, > 45 dB, as is a cache 0.01 of a unit stale.
+PB_FRAMES = 8
+PB_STEP = 0.0025
+PB_STALE_SHIFT = 0.01
+PB_REPS = 7
+PB_QUANTUM = 3.9e-3
+PB_ATOL_DEPTH, PB_RTOL_DEPTH = 2e-2, 1e-3
+PB_STALE_PSNR_MIN = 45.0
+PB_RESORT = 8
+PB_Z_MAX = 10.0
+
+
+def psnr(a, b) -> float:
+    mse = float(((a - b) ** 2).mean())
+    return 10.0 * np.log10(1.0 / max(mse, 1e-12))
+
+
+def host_ms(fn, reps):
+    """ms of each of `reps` calls of `fn` after one untimed call, the
+    device idle before each and waited for after it."""
+    import torch
+    fn()
+    out = []
+    for i in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(i)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def gate_flips(rec_a, rec_b, starts, counts):
+    """(tiles, pixels) bool: the pixels at which some in-segment record
+    passes the 1/255 gate in one of two tables of the same records and not
+    in the other (every chunk of a tile, as if none stopped)."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.ops.compositing import ALPHA_EPS, \
+        ALPHA_MAX
+    grid_w = -(-W // TILE)
+    dev = rec_a.device
+    s, c = starts.long(), counts.long()
+    shift = s % CHUNK
+    base = s - shift
+    n_chunks = (shift + c + CHUNK - 1) // CHUNK
+    tile = torch.arange(s.shape[0], device=dev)
+    lin = torch.arange(TILE * TILE, device=dev)
+    px = ((tile % grid_w) * TILE).float()[:, None] + (lin % TILE).float()
+    py = ((tile // grid_w) * TILE).float()[:, None] + (lin // TILE).float()
+    lane = torch.arange(CHUNK, device=dev)
+    flip = torch.zeros_like(px, dtype=torch.bool)
+
+    def passes(rec, idx, ok):
+        g = rec[:6, torch.clamp(idx, max=rec.shape[1] - 1)]
+        dx = g[0][:, None, :] - px[:, :, None]
+        dy = g[1][:, None, :] - py[:, :, None]
+        power = torch.clamp(-0.5 * (g[2][:, None] * dx * dx
+                                    + g[4][:, None] * dy * dy)
+                            - g[3][:, None] * dx * dy, max=0.0)
+        alpha = torch.clamp(g[5][:, None] * torch.exp2(power), max=ALPHA_MAX)
+        return (alpha >= ALPHA_EPS) & ok[:, None, :]
+
+    for k in range(int(n_chunks.max())):
+        idx = base[:, None] + k * CHUNK + lane
+        ok = ((lane >= (shift - k * CHUNK)[:, None])
+              & (lane < (shift + c - k * CHUNK)[:, None]))
+        flip |= (passes(rec_a, idx, ok) != passes(rec_b, idx, ok)).any(-1)
+    return flip
+
+
+def raw_errors(k, p, n_chan):
+    """K1's outputs (raw, log_t, n_active) against its plain version's, as
+    `phase_k1` holds them."""
+    raw_k, logt_k, nact_k = k
+    raw_p, logt_p, nact_p = p
+    n_val = raw_k.shape[-1]
+    rows = [i for i in range(n_val) if i != n_chan]
+    dn = (nact_k - nact_p).abs().reshape(-1)
+    err = dict(chan=float((raw_k[..., rows] - raw_p[..., rows]).abs().max()),
+               depth=float((raw_k[..., n_chan] - raw_p[..., n_chan]).abs()
+                           .max()),
+               log_t=float((logt_k - logt_p).abs().max()),
+               n_active_equal=int((dn == 0).sum()) / dn.numel(),
+               n_active_maxdiff=int(dn.max()))
+    err["ok"] = (err["chan"] <= ATOL_CHAN and err["depth"] <= ATOL_DEPTH
+                 and err["log_t"] <= ATOL_LOGT
+                 and err["n_active_equal"] >= NACT_EQUAL_MIN
+                 and err["n_active_maxdiff"] <= 1)
+    return err
+
+
+def phase_playback_main_path(scene, device, smi):
+    """Cached-order playback at the bench view (200k gaussians, RGB + 3 seg
+    channels, CV 8): `build_cache` at a key frame, then `render_playback`
+    at 8 cameras 0.0025 apart along x, the launch counts set to 0 just
+    before and read just after (K1 once per frame, none in build_cache).
+    The cache's order against the exact render's emission and sort; frame
+    0 (a fresh cache) against the exact kernel render; a cache 0.01 stale
+    by PSNR; the last frame's record table through K1 against K1's plain
+    version on the card at K1's tolerances, with the footprint cull's
+    `pairs_live_culled` = 0. Medians
+    of 7 timed calls: a key frame (build_cache + render_playback), a
+    cached frame, the exact frame (`render`, method cuda), on tensors on
+    the card. Then `cli visualize --resort-every 8` on `main_path`'s
+    checkpoint: a timestep per frame, so every frame is a key frame, K1
+    once per frame."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.ops.compositing import ALPHA_EPS
+    from dynamic3dgaussians_tpu_torch.ops.cuda.raster_fwd import (
+        composite_tiles, composite_tiles_torch)
+    from dynamic3dgaussians_tpu_torch.ops.playback import (
+        build_cache, playback_records, render_playback)
+    from dynamic3dgaussians_tpu_torch.ops.projection import project
+    from dynamic3dgaussians_tpu_torch.ops.rasterize import (RasterConfig,
+                                                            render)
+    from dynamic3dgaussians_tpu_torch.ops.sorted_raster import (
+        _untile, depth_key_bits, emit as emit_pairs, fuse_tile_depth_key,
+        prepare_records, record_columns)
+
+    t = {k: torch.as_tensor(v, device=device) for k, v in scene.items()}
+    args = (t["means"], t["colors"], t["opac"], t["scales"], t["quats"])
+    geom = (t["means"], t["opac"], t["scales"], t["quats"])
+    seg = t["seg_colors"]
+    cams = [bench_camera(device, PB_STEP * i) for i in range(PB_FRAMES)]
+
+    def cached(cam, cache, **kw):
+        return render_playback(cam, *args, cache, extra_channels=seg,
+                               device=device, **kw)
+
+    def exact(cam):
+        with torch.no_grad():
+            return render(cam, *args, extra_channels=seg, method="cuda",
+                          device=device)
+
+    zero_launches()
+    cache = build_cache(cams[0], *geom, device=device)
+    torch.cuda.synchronize()
+    build_launches = read_launches()
+    outs = [cached(cam, cache) for cam in cams]
+    torch.cuda.synchronize()
+    launches = read_launches()
+
+    fresh, ref = outs[0], exact(cams[0])
+    kw = dict(num_tiles=cache.starts.shape[0], grid_w=-(-W // TILE),
+              tile_h=TILE, tile_w=TILE, chunk=CHUNK)
+    with torch.no_grad():
+        proj = project(t["means"], t["scales"], t["quats"], cams[0])
+        op = torch.where(proj.valid, t["opac"], torch.zeros_like(t["opac"]))
+        chans = torch.cat([t["colors"], seg], dim=-1)
+        rec_pb = playback_records(proj, chans, op, cache, CHUNK)
+        table = record_columns(proj, chans, op)
+        rec_f32 = torch.zeros_like(rec_pb)
+        rec_f32[:, :cache.gidx.shape[0]] = table[:, cache.gidx.long()]
+        # the exact render's emission and sort at the key frame's camera
+        cfg = RasterConfig()
+        num_tiles = cache.starts.shape[0]
+        tile_key, gid, _ = emit_pairs(
+            H, W, proj, op, tile_h=TILE, tile_w=TILE,
+            max_tiles_per_gaussian=cfg.max_tiles_per_gaussian,
+            exact_cull=cfg.exact_cull, enum_cap=cfg.emit_enum_cap)
+        _, ex_starts, ex_counts, ex_slots = prepare_records(
+            tile_key, gid, table, n_chan=chans.shape[1], num_tiles=num_tiles,
+            chunk=CHUNK, bits_z=depth_key_bits(num_tiles),
+            depth_mode=cfg.depth_mode)
+        ex_gidx = gid[ex_slots].long()
+        tiles = torch.arange(num_tiles, device=device)
+        pair_tile = torch.repeat_interleave(tiles, cache.counts.long())
+        pb_key = fuse_tile_depth_key(pair_tile.to(torch.int32),
+                                     proj.depth[cache.gidx.long()],
+                                     depth_key_bits(num_tiles))
+        same_segments = bool(torch.equal(cache.starts, ex_starts)
+                             and torch.equal(cache.counts, ex_counts))
+        n = t["means"].shape[0]
+        same_ids = same_segments and bool(torch.equal(
+            torch.sort(pair_tile * n + cache.gidx.long())[0],
+            torch.sort(torch.repeat_interleave(tiles, ex_counts.long()) * n
+                       + ex_gidx)[0]))
+        order = dict(
+            n_live=int(cache.gidx.shape[0]), n_live_exact=int(ex_gidx.shape[0]),
+            same_segments=same_segments, same_ids_per_tile=same_ids,
+            key_nondecreasing=bool((pb_key[1:] >= pb_key[:-1]).all()),
+            pairs_in_exact_order=float(
+                (cache.gidx.long() == ex_gidx).float().mean())
+            if cache.gidx.shape[0] == ex_gidx.shape[0] else None)
+    flip = gate_flips(rec_pb, rec_f32, cache.starts, cache.counts)
+    allow = flip.float() * ALPHA_EPS
+    raw_pb = composite_tiles(rec_pb, cache.starts, cache.counts, **kw)[0]
+    raw_f32 = composite_tiles(rec_f32, cache.starts, cache.counts, **kw)[0]
+    n_chan = chans.shape[1]
+    grid = (-(-H // TILE), -(-W // TILE), TILE, TILE, H, W)
+    f32_rgb = _untile(raw_f32[..., :3], *grid, 3)
+    f32_alpha = _untile(raw_f32[..., n_chan + 1, None], *grid, 1)[..., 0]
+    f32_order_vs_exact = dict(
+        rgb=float((f32_rgb - ref.rgb).abs().max()),
+        alpha=float((f32_alpha - ref.alpha).abs().max()),
+        psnr_rgb=psnr(f32_rgb, ref.rgb))
+    e = (raw_pb - raw_f32).abs()
+    e_chan = torch.cat([e[..., :n_chan], e[..., n_chan + 1:n_chan + 2]],
+                       -1).amax(-1)
+    depth_bound = (PB_ATOL_DEPTH + PB_RTOL_DEPTH * raw_f32[..., n_chan].abs()
+                   + allow * PB_Z_MAX)
+    e_alpha = (fresh.alpha - ref.alpha).abs()
+    flip_img = _untile(flip[..., None], -(-H // TILE), -(-W // TILE), TILE,
+                       TILE, H, W, 1)[..., 0]
+    err_fresh = dict(
+        f16_chan=float(e_chan.max()),
+        f16_chan_no_flip=float(torch.where(flip, 0.0, e_chan).max()),
+        f16_depth=float(e[..., n_chan].max()),
+        alpha_vs_exact=float(e_alpha.max()),
+        rgb_vs_exact=float((fresh.rgb - ref.rgb).abs().max()),
+        extra_vs_exact=float((fresh.extra - ref.extra).abs().max()),
+        depth_vs_exact=float((fresh.depth - ref.depth).abs().max()),
+        psnr_rgb_vs_exact=psnr(fresh.rgb, ref.rgb),
+        psnr_extra_vs_exact=psnr(fresh.extra, ref.extra))
+    excess = dict(
+        f16_chan=float((e_chan - PB_QUANTUM - allow).max()),
+        f16_depth=float((e[..., n_chan] - depth_bound).max()),
+        alpha_vs_exact=float((e_alpha - PB_QUANTUM
+                              - flip_img.float() * ALPHA_EPS).max()))
+    psnr_cached = [psnr(o.rgb, exact(cam).rgb)
+                   for o, cam in zip(outs, cams)]
+    stale_cam = bench_camera(device, PB_STALE_SHIFT)
+    psnr_stale = psnr(cached(stale_cam, cache).rgb, exact(stale_cam).rgb)
+
+    with torch.no_grad():
+        proj = project(t["means"], t["scales"], t["quats"], cams[-1])
+        op = torch.where(proj.valid, t["opac"], torch.zeros_like(t["opac"]))
+        rec_t = playback_records(proj, chans, op, cache, CHUNK)
+    k_out = composite_tiles(rec_t, cache.starts, cache.counts, **kw)
+    p_out = composite_tiles_torch(rec_t, cache.starts, cache.counts, **kw)
+    err_k1 = raw_errors(k_out, p_out, chans.shape[1])
+    cells = table_stats("playback", rec_t, cache.starts, cache.counts,
+                        k_out[2])
+
+    key_ms = host_ms(lambda i=0: cached(
+        cams[0], build_cache(cams[0], *geom, device=device)), PB_REPS)
+    build_ms = host_ms(lambda i=0: build_cache(cams[0], *geom,
+                                               device=device), PB_REPS)
+    cached_ms = host_ms(lambda i=0: cached(cams[1 + i % (PB_FRAMES - 1)],
+                                           cache), PB_REPS)
+    exact_ms = host_ms(lambda i=0: exact(cams[1 + i % (PB_FRAMES - 1)]),
+                       PB_REPS)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = main_checkpoint(scene, tmp)
+        vis_s, vis_launches, _ = run_visualize(
+            path, os.path.join(tmp, "orbit.gif"),
+            ["--resort-every", str(PB_RESORT)])
+
+    rec = dict(
+        phase="playback_main_path", n_gaussians=N_GAUSS, cv=rec_t.shape[0] - 8,
+        frames=PB_FRAMES, step=PB_STEP, n_live=int(cache.gidx.shape[0]),
+        ne_pad=rec_t.shape[1], n_dropped_rect=int(cache.n_dropped_rect),
+        build_cache_launches=build_launches, launches=launches,
+        order=order, f32_order_vs_exact=f32_order_vs_exact,
+        err_fresh_vs_exact=err_fresh, bound_excess=excess,
+        gate_flip_pixels=int(flip.sum()),
+        psnr_cached_vs_exact=psnr_cached, psnr_stale=psnr_stale,
+        stale_shift=PB_STALE_SHIFT, k1_vs_plain=err_k1, cells=cells,
+        key_frame_ms=key_ms, key_frame_ms_median=float(np.median(key_ms)),
+        build_cache_ms_median=float(np.median(build_ms)),
+        cached_frame_ms=cached_ms,
+        cached_frame_ms_median=float(np.median(cached_ms)),
+        exact_frame_ms=exact_ms,
+        exact_frame_ms_median=float(np.median(exact_ms)),
+        visualize=dict(cmd="cli visualize --resort-every "
+                       f"{PB_RESORT} " + " ".join(MAIN_FLAGS),
+                       seconds=vis_s, launches=vis_launches),
+        tol=dict(quantum=PB_QUANTUM, depth=(PB_ATOL_DEPTH, PB_RTOL_DEPTH),
+                 gate_flip=ALPHA_EPS, gate_flip_depth=ALPHA_EPS * PB_Z_MAX,
+                 stale_psnr_db=PB_STALE_PSNR_MIN, k1_chan=ATOL_CHAN,
+                 k1_depth=ATOL_DEPTH),
+        card=smi)
+    emit(rec)
+    none = {"raster_fwd": 0, "raster_bwd": 0, "sol_probe": 0}
+    checks = {
+        "build_cache launches nothing": build_launches == none,
+        "K1 once per frame": launches == dict(none, raster_fwd=PB_FRAMES),
+        "cache segments equal the exact render's": same_segments,
+        "same gaussian ids per tile": same_ids,
+        "cached order sorted by the float-bits key":
+            order["key_nondecreasing"],
+        "fresh cache: f16 transport and alpha": max(excess.values()) <= 0.0,
+        "fresh cache vs exact: PSNR": min(
+            err_fresh["psnr_rgb_vs_exact"],
+            err_fresh["psnr_extra_vs_exact"]) > PB_STALE_PSNR_MIN,
+        "stale cache PSNR": psnr_stale > PB_STALE_PSNR_MIN,
+        "K1 vs plain on the playback table": err_k1["ok"],
+        "finite": bool(all(torch.isfinite(o.rgb).all() for o in outs)),
+        "no drops": int(cache.n_dropped_rect) == 0,
+        "visualize K1 once per frame": vis_launches == dict(
+            none, raster_fwd=MAIN_FRAMES),
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"playback checks failed: {bad}")
+    return rec
+
+
+# The viewer (`view_main_path`): `cli train`'s params.npz served by
+# `make_server` on port 0; 12 requests 0.003 rad apart at one timestep
+# (cached frames), then a jump of 1.5 rad (a rebuild). A served JPEG is
+# held against the frame of a second CheckpointSource given the same
+# requests: its mean error at most the JPEG's own on that frame plus a
+# quarter level. That source's rgb frames of the steps and the jump are
+# held against the exact render at the same camera by PSNR: those whose
+# request built a cache at the playback bound (PB_STALE_PSNR_MIN); the
+# others, through a cache up to 7 steps old, are reported. The refresh
+# rule (8 frames, or a move of 5 % of the radius) is the reference's, and
+# on the trained scene it lets a cached frame fall to ~30 dB (PERF.md). The network GUI's reply (raw RGB bytes) against a local
+# render of the camera as sent: mean at most 0.05 levels.
+VIEW_STEPS = 12
+VIEW_STEP = 0.003
+VIEW_JUMP = 1.5
+VIEW_JPEG_MARGIN = 0.25
+GUI_REQUESTS = 5
+BRIDGE_REQUESTS = 3
+GUI_MEAN_LEVELS = 0.05
+SOCKET_TIMEOUT = 60.0
+
+
+def _http_get(url):
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=SOCKET_TIMEOUT) as r:
+        return r.status, r.headers.get("Content-Type"), r.read()
+
+
+def _decode_jpeg(body):
+    import io
+
+    from PIL import Image
+    return np.asarray(Image.open(io.BytesIO(body)))
+
+
+@contextlib.contextmanager
+def http_server(source):
+    """`make_server(source)` on port 0, served on a daemon thread; yields
+    its base URL and shuts it down on exit."""
+    import threading
+    from dynamic3dgaussians_tpu_torch.viz.live_viewer import make_server
+    srv = make_server(source, port=0, w=W, h=H, f=F)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    try:
+        yield f"http://127.0.0.1:{srv.server_address[1]}"
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=SOCKET_TIMEOUT)
+
+
+def phase_view_main_path(train_rec, device, smi):
+    """`cli view`'s server over `train_main_path`'s params.npz: `/`,
+    `/meta`, `/frame` in the modes rgb, depth, seg and centers with the
+    trajectory overlay, a run of small steps at one timestep and a jump
+    (the playback caches built, the LRU's size and ms per request); then a
+    `NetworkGUI` serving K1 renders, reached by `GuiClient` (round-trip
+    ms) and by the browser bridge of `serve_live` (`GuiClientSource`
+    behind `make_server`). The launch counts are set to 0 before the
+    first request and read after the last: K1 once per rendered request.
+    The comparisons come after."""
+    import threading
+    from urllib.parse import urlencode
+
+    import torch
+    from dynamic3dgaussians_tpu_torch.utils.image_utils import \
+        render_net_image
+    from dynamic3dgaussians_tpu_torch.viz import live_viewer as lv
+    from dynamic3dgaussians_tpu_torch.viz.network_gui import NetworkGUI
+    from dynamic3dgaussians_tpu_torch.viz.export import load_params
+    from dynamic3dgaussians_tpu_torch.viz.render import (params_at_t,
+                                                         render_frame,
+                                                         to_uint8)
+    stacked = load_params(os.path.join(train_rec["run_dir"], "params.npz"))
+    src = lv.CheckpointSource(stacked, device=device)
+    if not src.use_playback:
+        raise AssertionError("CheckpointSource on cuda did not take playback")
+    r = src.radius
+    queries = [dict(az=0.7, el=0.3, r=r, t=0, mode=m, traj=1)
+               for m in ("rgb", "depth", "seg", "centers")]
+    queries += [dict(az=0.7 + VIEW_STEP * (i + 1), el=0.3, r=r, t=1,
+                     mode="rgb", traj=0) for i in range(VIEW_STEPS)]
+    queries += [dict(az=0.7 + VIEW_STEP * VIEW_STEPS + VIEW_JUMP, el=0.3,
+                     r=r, t=1, mode="rgb", traj=0)]
+    pt = params_at_t(stacked, 0)
+
+    def gui_render(cam, mode, scaling_modifier):
+        return render_net_image(render_frame(pt, cam, device=device), mode,
+                                fx=float(cam.fx), fy=float(cam.fy))
+
+    def gui_cam(i):
+        return lv.orbit_camera(src.center, 0.7 + 0.01 * i, 0.3, r, W, H, F,
+                               device=device)
+
+    served, http, gui_ms, bridge = [], [], [], []
+    zero_launches()
+    with http_server(src) as base:
+        status_page = _http_get(base + "/")[:2]
+        meta = json.loads(_http_get(base + "/meta")[2])
+        for q in queries:
+            t0 = time.perf_counter()
+            status, ctype, body = _http_get(base + "/frame?" + urlencode(q))
+            http.append(dict(q=q, ms=(time.perf_counter() - t0) * 1e3,
+                             status=status, ctype=ctype, body=body,
+                             builds=src.cache_builds, lru=len(src._pb)))
+    gui = NetworkGUI(port=0, timeout=SOCKET_TIMEOUT, device=device)
+    stop = threading.Event()
+
+    def gui_loop():
+        while not stop.is_set():
+            if gui.poll(gui_render) is not None:
+                served.append(1)
+            else:
+                time.sleep(0.001)
+
+    th = threading.Thread(target=gui_loop, daemon=True)
+    th.start()
+    try:
+        client = lv.GuiClient(port=gui.port, timeout=SOCKET_TIMEOUT)
+        try:
+            gui_imgs = []
+            for i in range(GUI_REQUESTS):
+                t0 = time.perf_counter()
+                img, _ = client.request(gui_cam(i), render_mode="RGB")
+                gui_ms.append((time.perf_counter() - t0) * 1e3)
+                gui_imgs.append(img)
+        finally:
+            client.close()
+        bsrc = lv.GuiClientSource("127.0.0.1", gui.port, center=src.center,
+                                  radius=r, device=device)
+        try:
+            with http_server(bsrc) as base:
+                for i in range(BRIDGE_REQUESTS):
+                    q = dict(az=0.7 + 0.01 * i, el=0.3, r=r, mode="rgb")
+                    t0 = time.perf_counter()
+                    _, ctype, body = _http_get(base + "/frame?"
+                                               + urlencode(q))
+                    bridge.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                                       ctype=ctype, body=body))
+        finally:
+            bsrc.client.close()
+    finally:
+        stop.set()
+        th.join(timeout=2 * SOCKET_TIMEOUT)
+        gui.close()
+    torch.cuda.synchronize()
+    launches = read_launches()
+
+    # the comparisons: a twin source given the same requests
+    twin = lv.CheckpointSource(stacked, device=device)
+    frame_err = []
+    for h in http:
+        q = h["q"]
+        cam = lv.orbit_camera(twin.center, q["az"], q["el"], q["r"], W, H, F,
+                              device=device)
+        built = twin.cache_builds
+        want = twin.frame(cam, q["t"], q["mode"], q["traj"] == 1).astype(
+            np.float64)
+        built = twin.cache_builds > built
+        got = _decode_jpeg(h["body"])
+        own = _decode_jpeg(lv._encode_jpeg(want.astype(np.uint8)))
+        frame_err.append(dict(mode=q["mode"], shape=list(got.shape),
+                              mean=float(np.abs(got - want).mean()),
+                              jpeg_mean=float(np.abs(own - want).mean()),
+                              equal=bool(np.array_equal(got, own))))
+        if q["mode"] == "rgb" and q["traj"] == 0:
+            exact = to_uint8(render_frame(params_at_t(stacked, q["t"]), cam,
+                                          device=device).rgb)
+            frame_err[-1].update(
+                psnr_vs_exact=psnr(want / 255.0, exact / 255.0),
+                cache_built=bool(built))
+    gui_err = []
+    for i, img in enumerate(gui_imgs):
+        want = to_uint8(render_frame(pt, gui_cam(i), device=device).rgb)
+        d = np.abs(img.astype(np.float64) - want)
+        gui_err.append(dict(mean=float(d.mean()), max=float(d.max())))
+    bridge_err = []
+    for i, b in enumerate(bridge):
+        want = to_uint8(render_frame(pt, gui_cam(i), device=device).rgb)
+        own = _decode_jpeg(lv._encode_jpeg(want))
+        got = _decode_jpeg(b["body"])
+        bridge_err.append(dict(
+            mean=float(np.abs(got - want.astype(np.float64)).mean()),
+            jpeg_mean=float(np.abs(own - want.astype(np.float64)).mean())))
+
+    rendered = sum(h["q"]["mode"] != "centers" for h in http)
+    steps = http[4:4 + VIEW_STEPS]
+    rec = dict(
+        phase="view_main_path", n_gaussians=int(stacked["means3D"].shape[1]),
+        timesteps=src.num_t, meta=meta, page=list(status_page),
+        requests=len(http), launches=launches,
+        cache_builds=[h["builds"] for h in http],
+        lru_size=[h["lru"] for h in http],
+        ms_per_request=[h["ms"] for h in http],
+        ms_first_per_mode={h["q"]["mode"]: h["ms"] for h in http[:4]},
+        ms_steps_median=float(np.median([h["ms"] for h in steps])),
+        ms_jump=http[-1]["ms"], frame_err=frame_err,
+        psnr_vs_exact=[e["psnr_vs_exact"] for e in frame_err
+                       if "psnr_vs_exact" in e],
+        gui_round_trip_ms=gui_ms,
+        gui_round_trip_ms_median=float(np.median(gui_ms)),
+        gui_err=gui_err, gui_served=len(served),
+        bridge_ms=[b["ms"] for b in bridge], bridge_err=bridge_err,
+        tol=dict(jpeg_margin_levels=VIEW_JPEG_MARGIN,
+                 gui_mean_levels=GUI_MEAN_LEVELS,
+                 playback_psnr_db=PB_STALE_PSNR_MIN),
+        card=smi)
+    emit(rec)
+    none = {"raster_fwd": 0, "raster_bwd": 0, "sol_probe": 0}
+    builds = [h["builds"] for h in http]
+    checks = {
+        "page and meta": status_page == (200, "text/html")
+        and meta["num_timesteps"] == src.num_t,
+        "frames": all(h["status"] == 200 and h["ctype"] == "image/jpeg"
+                      for h in http)
+        and all(e["shape"] == [H, W, 3] for e in frame_err),
+        "K1 once per render": launches == dict(
+            none, raster_fwd=rendered + GUI_REQUESTS + BRIDGE_REQUESTS),
+        "cached frames": builds[-2] - builds[4] < VIEW_STEPS,
+        "jump rebuilds": builds[-1] == builds[-2] + 1,
+        "lru": max(h["lru"] for h in http) <= 4,
+        "jpeg vs source": all(e["mean"] <= e["jpeg_mean"] + VIEW_JPEG_MARGIN
+                              for e in frame_err),
+        "key frames vs exact": all(
+            e["psnr_vs_exact"] > PB_STALE_PSNR_MIN
+            for e in frame_err if e.get("cache_built"))
+        and sum(bool(e.get("cache_built")) for e in frame_err)
+        == builds[-1] - builds[3],
+        "gui served": len(served) == GUI_REQUESTS + BRIDGE_REQUESTS,
+        "gui vs local": all(e["mean"] <= GUI_MEAN_LEVELS for e in gui_err),
+        "bridge": all(b["ctype"] == "image/jpeg" for b in bridge)
+        and all(e["mean"] <= e["jpeg_mean"] + VIEW_JPEG_MARGIN
+                for e in bridge_err),
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"viewer checks failed: {bad}")
+    return rec
+
+
+# The "tiled" method (plain PyTorch) against the kernel path: on the first
+# 20,000 gaussians of the bench scene at the bench view, where its drop
+# counters read 0, at the oracle phase's tolerances (neither the oracle nor
+# the tiled path stops a tile early); the gradients of a seeded cotangent
+# at the golden fixtures' rel 1e-2 of max(|g|, 1). At the full bench view
+# only its counters and times are reported.
+TILED_N = 20_000
+TILED_REPS = 3
+
+
+def phase_tiled(scene, device, smi):
+    """One frame and one gradient of `render(method="tiled")` against the
+    kernel path (depth_mode "exact": the tiled path composites exact
+    depth), and the tiled path's drop counters and time at the bench
+    view."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.ops.rasterize import (RasterConfig,
+                                                            render)
+    cam = bench_camera(device)
+    exact = RasterConfig(depth_mode="exact")
+    keys = ("means", "colors", "opac", "scales", "quats")
+    counters = ("n_dropped_capacity", "n_dropped_rect",
+                "n_dropped_tile_overflow")
+    rng = np.random.RandomState(11)
+    ct_rgb = torch.as_tensor(rng.normal(size=(H, W, 3)).astype(np.float32),
+                             device=device)
+    ct_depth = torch.as_tensor(rng.normal(size=(H, W)).astype(np.float32),
+                               device=device)
+
+    def run(method, n, grad):
+        ts = [torch.tensor(scene[k][:n], device=device, requires_grad=grad)
+              for k in keys]
+        seg = torch.as_tensor(scene["seg_colors"][:n], device=device)
+        with torch.set_grad_enabled(grad):
+            out = render(cam, *ts, extra_channels=seg, method=method,
+                         config=exact if method == "cuda" else None,
+                         device=device)
+        if not grad:
+            return out, None
+        loss = (torch.sum(out.rgb * ct_rgb)
+                + torch.sum(out.depth * ct_depth))
+        return out, torch.autograd.grad(loss, ts)
+
+    out_t, g_t = run("tiled", TILED_N, True)
+    out_k, g_k = run("cuda", TILED_N, True)
+    err = {k: float((getattr(out_t, k) - getattr(out_k, k)).abs().max())
+           for k in ("rgb", "alpha", "extra", "depth")}
+    grad_err = {k: float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
+                for k, a, b in zip(keys, g_t, g_k)}
+    small = {c: int(getattr(out_t, c)) for c in counters}
+    del g_t, g_k
+    with torch.no_grad():
+        full, _ = run("tiled", N_GAUSS, False)
+        bench = {c: int(getattr(full, c)) for c in counters}
+        del full
+        tiled_ms = host_ms(lambda i=0: run("tiled", N_GAUSS, False),
+                           TILED_REPS)
+        kernel_ms = host_ms(lambda i=0: run("cuda", N_GAUSS, False),
+                            TILED_REPS)
+    rec = dict(phase="tiled", n_compare=TILED_N, counters_compare=small,
+               n_dropped_rect_kernel=int(out_k.n_dropped_rect),
+               err_vs_kernel=err, grad_rel_err=grad_err,
+               counters_bench=bench, tiled_ms=tiled_ms,
+               tiled_ms_median=float(np.median(tiled_ms)),
+               kernel_path_ms=kernel_ms,
+               kernel_path_ms_median=float(np.median(kernel_ms)),
+               tol=dict(rgb=2e-4, alpha=2e-4, extra=2e-4, depth=2e-3,
+                        grad_rel=REL_GOLDEN),
+               card=smi)
+    emit(rec)
+    ok = (not any(small.values()) and int(out_k.n_dropped_rect) == 0
+          and err["rgb"] <= 2e-4 and err["alpha"] <= 2e-4
+          and err["extra"] <= 2e-4 and err["depth"] <= 2e-3
+          and max(grad_err.values()) <= REL_GOLDEN)
+    if not ok:
+        raise AssertionError(f"the tiled path disagrees with the kernel "
+                             f"path: {rec}")
+    return rec
+
+
 def floor_rec(k1, k2, k3, train_launches, smi):
     """ns per walked cell of K1 and K2 at the bench view against K3's
     card-wide floor for the same cell pipeline, and each kernel's gap to
@@ -1542,11 +2210,14 @@ def main() -> int:
     phase_oracle(device)
     phase_grad_golden(device)
     view_rec = phase_main_path(scene, device, smi)
+    pb_rec = phase_playback_main_path(scene, device, smi)
     with tempfile.TemporaryDirectory() as tmp:
         train_rec = phase_train_main_path(scene, device, smi, tmp)
         phase_ckpt_main_path(train_rec, device, smi)
         eval_rec = phase_evaluate_main_path(train_rec, device, smi)
         track_rec = phase_tracking(train_rec, device, smi)
+        viewer_rec = phase_view_main_path(train_rec, device, smi)
+    phase_tiled(scene, device, smi)
     phase_knn_approx(scene, device, smi)
     probe_rec = phase_probe_main_path(k3, device, smi)
     b1, b2 = k1["bench", 8], k2["bench", 8]
@@ -1555,7 +2226,8 @@ def main() -> int:
     # both render paths pass RGB + 3 seg channels: CV = 8
     paths = (("visualize", view_rec), ("train", train_rec),
              ("probe", probe_rec), ("evaluate", eval_rec),
-             ("tracking", track_rec))
+             ("tracking", track_rec), ("playback", pb_rec),
+             ("view", viewer_rec))
     by_path = {name: {p: r["launches"][name] for p, r in paths}
                for name in ("raster_fwd", "raster_bwd", "sol_probe")}
     wide = k3["stream_compute/card_wide"]

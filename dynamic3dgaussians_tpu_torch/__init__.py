@@ -18,6 +18,17 @@ approximate kNN graph and the RCM reorder at t = 0; forward extrapolation,
 the neighbour lookup and the physics losses at t > 0; full-state
 checkpoints and resume; images streamed by the native prefetching loader),
 the splat PLY codec (`native.py`, `viz/export.py`), evaluation and pixel
-tracking (`eval/`, `cli evaluate`, `cli evaluate-suite`), and the
-speed-of-light probe of the tile walk (`tools/bench_sol.py`).
+tracking (`eval/`, `cli evaluate`, `cli evaluate-suite`), the
+speed-of-light probe of the tile walk (`tools/bench_sol.py`), and the
+serving path: cached-order playback (`ops/playback.py`, `cli visualize
+--resort-every N`), the live viewer and network GUI (`viz/`, `cli view`),
+the render utilities (`utils/`, `ops/debug.py`) and the plain "tiled"
+render method.
 """
+
+from dynamic3dgaussians_tpu_torch.ops.camera import (  # noqa: F401
+    Camera, make_camera)
+from dynamic3dgaussians_tpu_torch.ops.playback import (  # noqa: F401
+    PlaybackCache, build_cache, render_playback)
+from dynamic3dgaussians_tpu_torch.ops.rasterize import (  # noqa: F401
+    RasterConfig, RenderOutput, render)

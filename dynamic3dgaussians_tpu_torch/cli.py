@@ -4,7 +4,12 @@
       --seq cmu_bike --exp exp1 [--timesteps 3] [--checkpoint_every N] \
       [--resume] [--device cuda]
   python -m dynamic3dgaussians_tpu_torch.cli visualize \
-      --params output/exp1/seq/params.npz [--out orbit.gif] [--device cuda]
+      --params output/exp1/seq/params.npz [--out orbit.gif] \
+      [--resort-every N] [--device cuda]
+  python -m dynamic3dgaussians_tpu_torch.cli view \
+      --params output/exp1/seq/params.npz [--port 8000] [--device cuda]
+  python -m dynamic3dgaussians_tpu_torch.cli view --gui_host 127.0.0.1 \
+      [--gui_port 6009]
   python -m dynamic3dgaussians_tpu_torch.cli evaluate \
       --params output/exp1/seq/params.npz --data_root data --seq cmu_bike
   python -m dynamic3dgaussians_tpu_torch.cli evaluate-suite \
@@ -20,8 +25,13 @@ wall time. `--checkpoint_every N` saves the full training state every N
 steps under `<output>/<exp>/<seq>/ckpt`, and `--resume` restarts from the
 latest one there. On a data root the images stream through the native
 prefetching loader when its library builds (`native.py`).
-`visualize` orbit-renders a stacked params.npz to a GIF. `evaluate` renders
-every (timestep, camera) view of a trained sequence and prints its mean
+`visualize` orbit-renders a stacked params.npz to a GIF, with
+`--resort-every N > 1` through the cached-order playback path (a sort
+every N frames, and on every timestep change). `view` serves a params.npz
+to a browser (orbit, zoom, render modes, timestep playback), or with
+`--gui_host` bridges a browser to a training loop's network GUI.
+`evaluate` renders every (timestep, camera) view of a trained sequence and
+prints its mean
 PSNR and SSIM as JSON; `evaluate-suite` does so for many (seq, params.npz)
 pairs. All run on `cuda` unless `--device` says otherwise.
 """
@@ -220,6 +230,24 @@ def cmd_visualize(args):
     return frames
 
 
+def cmd_view(args):
+    from dynamic3dgaussians_tpu_torch.device import resolve_device
+    from dynamic3dgaussians_tpu_torch.viz import live_viewer
+
+    if not args.gui_host and not args.params:
+        raise SystemExit("view: need --params or --gui_host")
+    dev = resolve_device(args.device)
+    if args.gui_host:
+        live_viewer.serve_live(args.gui_host, args.gui_port, args.host,
+                               args.port, w=args.width, h=args.height,
+                               f=args.focal, device=dev)
+    else:
+        from dynamic3dgaussians_tpu_torch.viz.export import load_params
+        live_viewer.serve(load_params(args.params), args.host, args.port,
+                          w=args.width, h=args.height, f=args.focal,
+                          device=dev)
+
+
 def cmd_evaluate(args):
     from dynamic3dgaussians_tpu_torch.eval.suite import evaluate_sequence
     from dynamic3dgaussians_tpu_torch.viz.export import load_params
@@ -304,10 +332,27 @@ def main(argv=None):
     p.add_argument("--radius", type=float, default=4.0)
     p.add_argument("--fps", type=int, default=20)
     p.add_argument("--resort-every", type=int, default=1,
-                   help="cached-order playback interval (only 1, the exact "
-                        "per-frame sort, is ported)")
+                   help="cached-order playback interval: >1 sorts every N "
+                        "frames and renders the frames between through the "
+                        "frozen order (ops/playback.py)")
     _add_device_arg(p)
     p.set_defaults(fn=cmd_visualize)
+
+    p = sub.add_parser("view", help="interactive browser viewer (orbit, "
+                                    "zoom, render modes, playback)")
+    p.add_argument("--params", type=str, default=None,
+                   help="stacked params.npz to serve")
+    p.add_argument("--gui_host", type=str, default=None,
+                   help="bridge to a live training loop's network GUI "
+                        "instead")
+    p.add_argument("--gui_port", type=int, default=6009)
+    p.add_argument("--host", type=str, default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--width", type=int, default=640)
+    p.add_argument("--height", type=int, default=360)
+    p.add_argument("--focal", type=float, default=500.0)
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_view)
 
     p = sub.add_parser("evaluate", help="PSNR/SSIM vs dataset images")
     p.add_argument("--params", type=str, required=True)

@@ -96,8 +96,8 @@ def raster_config_from_jax(cfg) -> RasterConfig:
     Raises ValueError when a TPU-only field is set to a value that changes
     the numerics (pack_records=True, power_impl="mxu_fused",
     kernel_precision="default"); the other TPU-only fields (scan_impl,
-    tile_batch, unsort_impl, the tiled path's capacities) only change how
-    the TPU schedules the same result and are ignored.
+    tile_batch, unsort_impl) only change how the TPU schedules the same
+    result and are ignored.
     """
     for name, ok in _TPU_ONLY.items():
         val = getattr(cfg, name, ok[0])

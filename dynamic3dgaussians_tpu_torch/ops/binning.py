@@ -1,21 +1,31 @@
-"""Tile binning: (gaussian, tile) pair emission and per-tile ranges.
+"""Tile binning: (gaussian, tile) pair emission, sort and per-tile ranges.
 
 Port of `dynamic3dgaussians_tpu/ops/binning.py` (`emit_pairs`,
-`tile_ranges`). Every gaussian owns K = `max_tiles_per_gaussian` emission
-slots, laid out k-major (slot = k * N + gaussian), with `num_tiles` as the
-sentinel of an unused slot. Keeping the K slots means `n_dropped_rect`
-counts the same drops as the reference: pairs that a gaussian's K slots
-could not hold.
+`tile_ranges`, `sort_pairs`, `bin_gaussians`). Every gaussian owns K =
+`max_tiles_per_gaussian` emission slots, laid out k-major (slot = k * N +
+gaussian), with `num_tiles` as the sentinel of an unused slot. Keeping the
+K slots means `n_dropped_rect` counts the same drops as the reference:
+pairs that a gaussian's K slots could not hold. `bin_gaussians` feeds the
+plain "tiled" render path, with the reference's fixed pair capacity.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
 from dynamic3dgaussians_tpu_torch.ops.compositing import ALPHA_EPS
 from dynamic3dgaussians_tpu_torch.ops.projection import Projected, tile_rect
+
+
+class TileBins(NamedTuple):
+    gaussian_ids: torch.Tensor   # (pair_capacity,) int32, by (tile, depth)
+    tile_starts: torch.Tensor    # (num_tiles,) int32 index into gaussian_ids
+    tile_counts: torch.Tensor    # (num_tiles,) int32 pairs per tile
+    num_pairs: torch.Tensor      # () int32 pairs emitted, before the cap
+    n_dropped_capacity: torch.Tensor  # () int32 pairs past pair_capacity
+    n_dropped_rect: torch.Tensor      # () int32 pairs past the K slots
 
 
 def emit_pairs(proj: Projected, tile_h: int, tile_w: int, grid_h: int,
@@ -118,3 +128,49 @@ def tile_ranges(sorted_tile: torch.Tensor, num_tiles: int):
                                   device=sorted_tile.device),
         right=False).to(torch.int32)
     return bounds[:-1], bounds[1:] - bounds[:-1]
+
+
+def sort_pairs(tile_key: torch.Tensor, depth_key: torch.Tensor,
+               payload: Sequence[torch.Tensor]):
+    """Sort pairs by (tile, depth), carrying payload rows along: a stable
+    sort by depth, then a stable sort by tile. Returns (sorted tile_key,
+    sorted depth_key, sorted payload list). Equal (tile, depth) keys keep
+    their emission order, one of the orders the reference's unstable sort
+    may give."""
+    order = torch.sort(depth_key, stable=True).indices
+    order = order[torch.sort(tile_key[order], stable=True).indices]
+    return tile_key[order], depth_key[order], [p[order] for p in payload]
+
+
+def bin_gaussians(proj: Projected, tile_h: int, tile_w: int, grid_h: int,
+                  grid_w: int, pair_capacity: int,
+                  max_tiles_per_gaussian: int = 16) -> TileBins:
+    """Per-tile, depth-sorted gaussian id lists in a fixed pair capacity.
+
+    Emission without the exact cull, the (tile, depth) sort with culled
+    gaussians at depth inf, then the first `pair_capacity` pairs; the live
+    pairs past it are counted in `n_dropped_capacity`.
+    """
+    num_tiles = grid_h * grid_w
+    i32 = torch.int32
+    tile_key, gid, n_dropped_rect = emit_pairs(proj, tile_h, tile_w, grid_h,
+                                               grid_w, max_tiles_per_gaussian)
+    depth = torch.where(proj.valid, proj.depth,
+                        torch.full_like(proj.depth, float("inf")))
+    sorted_tile, _, (sorted_gid,) = sort_pairs(
+        tile_key, depth.repeat(max_tiles_per_gaussian), (gid,))
+    num_pairs = torch.sum((sorted_tile < num_tiles).to(i32))
+    cap = min(pair_capacity, sorted_tile.shape[0])
+    sorted_tile, sorted_gid = sorted_tile[:cap], sorted_gid[:cap]
+    if cap < pair_capacity:
+        pad = pair_capacity - cap
+        sorted_tile = torch.cat([sorted_tile, torch.full(
+            (pad,), num_tiles, dtype=i32, device=sorted_tile.device)])
+        sorted_gid = torch.cat([sorted_gid, torch.zeros(
+            (pad,), dtype=i32, device=sorted_gid.device)])
+    starts, counts = tile_ranges(sorted_tile.contiguous(), num_tiles)
+    return TileBins(
+        gaussian_ids=sorted_gid, tile_starts=starts, tile_counts=counts,
+        num_pairs=num_pairs.to(i32),
+        n_dropped_capacity=torch.clamp(num_pairs - cap, min=0).to(i32),
+        n_dropped_rect=n_dropped_rect)

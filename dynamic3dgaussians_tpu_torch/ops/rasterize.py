@@ -7,6 +7,12 @@ Port of `dynamic3dgaussians_tpu/ops/rasterize.py`. Methods:
   "torch"      the sorted-pair path with the plain PyTorch versions of the
                forward and backward tile kernels (K1, K2)
   "cuda"       the sorted-pair path through the CUDA kernels K1 and K2
+  "tiled"      the reference's pure-XLA path, plain PyTorch here too: a
+               fixed pair capacity (`binning.bin_gaussians`), each tile's
+               first `max_per_tile` pairs gathered from one record table
+               and composited chunk by chunk; gradients by autograd, each
+               chunk recomputed in the backward (`torch.utils.checkpoint`,
+               the reference's jax.checkpoint)
   "auto"       "cuda" on a CUDA device, "torch" on the CPU
 
 On the sorted-pair paths the gradient goes through one
@@ -27,17 +33,24 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
-from dynamic3dgaussians_tpu_torch.device import DeviceLike, resolve_device
+from dynamic3dgaussians_tpu_torch.device import (DeviceLike, no_tf32,
+                                                 resolve_device)
+from dynamic3dgaussians_tpu_torch.ops import compositing
+from dynamic3dgaussians_tpu_torch.ops.binning import TileBins, bin_gaussians
 from dynamic3dgaussians_tpu_torch.ops.camera import Camera
-from dynamic3dgaussians_tpu_torch.ops.projection import project
+from dynamic3dgaussians_tpu_torch.ops.cuda.raster_fwd import \
+    tile_pixel_coords
+from dynamic3dgaussians_tpu_torch.ops.projection import Projected, project
 from dynamic3dgaussians_tpu_torch.ops.rasterize_ref import \
     render_primitives_reference
 from dynamic3dgaussians_tpu_torch.ops.sh import sh_to_color
 from dynamic3dgaussians_tpu_torch.ops.sorted_raster import (DEPTH_MODES,
+                                                            _untile,
                                                             render_sorted)
 
-METHODS = ("auto", "reference", "torch", "cuda")
+METHODS = ("auto", "reference", "torch", "cuda", "tiled")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,11 +72,20 @@ class RasterConfig:
     # alpha gate; emit_enum_cap sizes the tested rect window (0 = auto)
     exact_cull: bool = True
     emit_enum_cap: int = 0
+    # "tiled" path only: pairs composited per tile (more are counted in
+    # RenderOutput.n_dropped_tile_overflow) and the pair capacity per
+    # gaussian (`pair_capacity`; more are counted in n_dropped_capacity)
+    max_per_tile: int = 1024
+    pairs_per_gaussian: int = 8
 
     def __post_init__(self):
         if self.depth_mode not in DEPTH_MODES:
             raise ValueError(f"depth_mode must be one of {DEPTH_MODES}, got "
                              f"{self.depth_mode!r}")
+
+    def pair_capacity(self, n: int) -> int:
+        cap = self.pairs_per_gaussian * n
+        return max(1024, -(-cap // 1024) * 1024)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,13 +95,84 @@ class RenderOutput:
     alpha: torch.Tensor                    # (H, W) sum alpha*T
     radii: torch.Tensor                    # (N,) int32, 0 = culled
     extra: Optional[torch.Tensor] = None   # (H, W, E) extra channels
-    n_dropped_rect: Optional[torch.Tensor] = None   # () int32
+    # () int32 drop counters, zero in a render that lost no pair; only the
+    # "tiled" path has the capacity and per-tile ones
+    n_dropped_rect: Optional[torch.Tensor] = None
+    n_dropped_capacity: Optional[torch.Tensor] = None
+    n_dropped_tile_overflow: Optional[torch.Tensor] = None
 
 
 def _grad_gate(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """x with its gradient zeroed where mask == 0; the value is unchanged."""
     m = mask.reshape(mask.shape + (1,) * (x.dim() - mask.dim())).to(x.dtype)
     return x * m + (x * (1.0 - m)).detach()
+
+
+def _record_table(proj: Projected, colors: torch.Tensor,
+                  opacity: torch.Tensor) -> torch.Tensor:
+    """(N, F) per-gaussian fields of the "tiled" path: [0:2] mean2d, [2:5]
+    conic, [5] opacity (zero for culled gaussians), [6:6+C] channels,
+    [6+C] view depth, [7+C] ones, zero columns up to F % 8 == 0."""
+    op = torch.where(proj.valid, opacity, torch.zeros_like(opacity))
+    table = torch.cat([proj.mean2d, proj.conic, op[:, None], colors,
+                       proj.depth[:, None], torch.ones_like(op)[:, None]],
+                      dim=-1)
+    pad = (-table.shape[-1]) % 8
+    if pad:
+        table = torch.nn.functional.pad(table, (0, pad))
+    return table
+
+
+def _gather_and_composite(h: int, w: int, proj: Projected,
+                          colors: torch.Tensor, opacity: torch.Tensor,
+                          bg: torch.Tensor, cfg: RasterConfig,
+                          bins: TileBins):
+    """Composite every tile's first `max_per_tile` pairs, chunk by chunk
+    -> (channels (H, W, C), depth (H, W), alpha (H, W))."""
+    th, tw, chunk = cfg.tile_h, cfg.tile_w, cfg.chunk
+    grid_h, grid_w = -(-h // th), -(-w // tw)
+    num_tiles = grid_h * grid_w
+    n_chan = colors.shape[-1]
+    dev = opacity.device
+    f32 = torch.float32
+
+    mt = -(-cfg.max_per_tile // chunk) * chunk
+    slot = torch.arange(mt, dtype=torch.int32, device=dev)
+    idx = bins.tile_starts[:, None] + slot[None, :]               # (T, MT)
+    in_list = slot[None, :] < torch.clamp(bins.tile_counts, max=mt)[:, None]
+    ids = bins.gaussian_ids[torch.clamp(
+        idx, 0, bins.gaussian_ids.shape[0] - 1).long()]
+    rec = _record_table(proj, colors, opacity)[ids.long()]       # (T, MT, F)
+    g_op = torch.where(in_list, rec[..., 5], torch.zeros_like(rec[..., 5]))
+
+    px, py = tile_pixel_coords(num_tiles, grid_w, th, tw, dev)
+    batched_alpha = torch.func.vmap(compositing.chunk_alpha)
+    batched_comp = torch.func.vmap(compositing.composite_chunk)
+
+    def body(t_in, acc, k):
+        sl = slice(k * chunk, (k + 1) * chunk)
+        g = rec[:, sl]                                            # (T, G, F)
+        alpha = batched_alpha(g[..., 0:2], g[..., 2:5], g_op[:, sl],
+                              in_list[:, sl], px, py)
+        with no_tf32():
+            return batched_comp(t_in, acc, alpha, g[..., 6:6 + n_chan + 2])
+
+    t_run = torch.ones((num_tiles, th * tw), dtype=f32, device=dev)
+    acc = torch.zeros((num_tiles, th * tw, n_chan + 2), dtype=f32,
+                      device=dev)
+    for k in range(mt // chunk):
+        if torch.is_grad_enabled():
+            t_run, acc = torch.utils.checkpoint.checkpoint(
+                body, t_run, acc, k, use_reentrant=False)
+        else:
+            t_run, acc = body(t_run, acc, k)
+
+    channels, depth, alpha = torch.func.vmap(compositing.finalize,
+                                             in_dims=(0, 0, None))(
+        t_run, acc, bg)
+    return (_untile(channels, grid_h, grid_w, th, tw, h, w, n_chan),
+            _untile(depth[..., None], grid_h, grid_w, th, tw, h, w, 1)[..., 0],
+            _untile(alpha[..., None], grid_h, grid_w, th, tw, h, w, 1)[..., 0])
 
 
 def render(cam: Camera,
@@ -157,6 +250,8 @@ def render(cam: Camera,
     proj = project(means3d, scales, rotations, cam,
                    scale_modifier=scale_modifier, cov3d_precomp=cov3d_precomp,
                    mean2d_probe_ndc=mean2d_probe_ndc)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    n_dropped_capacity = n_tile_overflow = zero
 
     if method == "reference":
         out = render_primitives_reference(cam, proj, all_chan, opacity,
@@ -164,7 +259,22 @@ def render(cam: Camera,
                                           tile_h=cfg.tile_h,
                                           tile_w=cfg.tile_w)
         channels, depth, alpha = out["channels"], out["depth"], out["alpha"]
-        n_dropped_rect = torch.zeros((), dtype=torch.int32, device=dev)
+        n_dropped_rect = zero
+    elif method == "tiled":
+        th, tw = cfg.tile_h, cfg.tile_w
+        grid_h, grid_w = -(-cam.height // th), -(-cam.width // tw)
+        bins = bin_gaussians(proj, th, tw, grid_h, grid_w,
+                             pair_capacity=cfg.pair_capacity(
+                                 opacity.shape[0]),
+                             max_tiles_per_gaussian=cfg.max_tiles_per_gaussian)
+        mt = -(-cfg.max_per_tile // cfg.chunk) * cfg.chunk
+        n_tile_overflow = torch.sum(torch.clamp(bins.tile_counts - mt,
+                                                min=0)).to(torch.int32)
+        channels, depth, alpha = _gather_and_composite(
+            cam.height, cam.width, proj, all_chan, opacity, full_bg, cfg,
+            bins)
+        n_dropped_rect = bins.n_dropped_rect
+        n_dropped_capacity = bins.n_dropped_capacity
     else:
         op = torch.where(proj.valid, opacity, torch.zeros_like(opacity))
         channels, depth, alpha, n_dropped_rect = render_sorted(
@@ -179,4 +289,5 @@ def render(cam: Camera,
         rgb=channels[..., :n_rgb],
         extra=None if extra_channels is None else channels[..., n_rgb:],
         depth=depth, alpha=alpha, radii=proj.radius,
-        n_dropped_rect=n_dropped_rect)
+        n_dropped_rect=n_dropped_rect, n_dropped_capacity=n_dropped_capacity,
+        n_dropped_tile_overflow=n_tile_overflow)

@@ -53,6 +53,33 @@ def depth_key_bits(num_tiles: int) -> int:
     return bits_z if bits_z >= 18 else 0
 
 
+def fuse_tile_depth_key(tile_key: torch.Tensor, depth: torch.Tensor,
+                        bits_z: int) -> torch.Tensor:
+    """tile << bits_z | the top bits of float_bits(max(depth, 1e-30)): the
+    float-bits fused key of the playback cache (not the affine key of
+    `prepare_records`). Positive float bits order like the floats, so the
+    key orders by depth down to ~2^-(bits_z - 8) relative. int32."""
+    d = torch.clamp(depth, min=1e-30).contiguous()
+    shift = 31 - bits_z
+    # logical shift right: mask off the sign copies of the arithmetic one
+    zq = (d.view(torch.int32) >> shift) & ((1 << (32 - shift)) - 1)
+    return (tile_key << bits_z) | zq
+
+
+def dequantize_depth_key(key: torch.Tensor, bits_z: int) -> torch.Tensor:
+    """Bucket-centre depth back out of a float-bits fused key."""
+    bits = (key & ((1 << bits_z) - 1)) << (31 - bits_z)
+    bits = bits | (1 << (31 - bits_z - 1))
+    return bits.contiguous().view(torch.float32)
+
+
+def round_f16(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> float16 (round to nearest even) -> float32: the values the
+    reference's packed f16 gather transport (`pack2_f16`, `unpack2_f16`)
+    delivers. Magnitudes past 65504 become inf, as there."""
+    return x.to(torch.float16).to(torch.float32)
+
+
 def affine_depth_range(live: torch.Tensor, depth: torch.Tensor):
     """(dmin, inv_width) of the live pairs' depth for the affine key."""
     big = torch.tensor(3e38, dtype=torch.float32, device=depth.device)

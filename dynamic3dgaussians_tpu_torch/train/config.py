@@ -6,12 +6,12 @@ unchanged. What the port makes of the fields that exist for the TPU:
 
   * raster.method: "auto" and "pallas" take the kernel path (the CUDA
     kernels on the card, their plain versions on the CPU), "torch" forces
-    the plain versions and "cuda" the kernels; "tiled", the reference's
-    pure-XLA path, is not ported and raises.
+    the plain versions and "cuda" the kernels; "tiled" is the reference's
+    pure-XLA path, plain PyTorch here.
   * raster.max_per_tile and raster.pairs_per_gaussian size only the tiled
-    path; they are kept and ignored. scan_impl and unsort_impl only change
-    how the TPU schedules the same result and are ignored; power_impl
-    "mxu_fused" and pack_records=True change the numerics and raise.
+    path. scan_impl and unsort_impl only change how the TPU schedules the
+    same result and are ignored; power_impl "mxu_fused" and
+    pack_records=True change the numerics and raise.
   * steps_per_call > 1 runs the same steps one at a time: the reference's
     multi-step window only amortises TPU dispatch, and the camera stream is
     the same either way.
@@ -31,7 +31,7 @@ from dynamic3dgaussians_tpu_torch.train.optim import DEFAULT_LRS
 
 # raster.method -> the port's render method
 RENDER_METHODS = {"auto": "auto", "pallas": "auto", "torch": "torch",
-                  "cuda": "cuda"}
+                  "cuda": "cuda", "tiled": "tiled"}
 
 
 @dataclasses.dataclass
@@ -39,10 +39,10 @@ class RasterSettings:
     tile_h: int = 16
     tile_w: int = 16
     chunk: int = 128
-    max_per_tile: int = 1024           # tiled path only: ignored
+    max_per_tile: int = 1024           # tiled path only
     # per-gaussian emission slots; overflow is counted in the step metrics
     max_tiles_per_gaussian: int = 8
-    pairs_per_gaussian: int = 8        # tiled path only: ignored
+    pairs_per_gaussian: int = 8        # tiled path only
     exact_cull: bool = True
     power_impl: str = "vpu"
     scan_impl: str = "matmul_split3"

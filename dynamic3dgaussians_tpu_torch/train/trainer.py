@@ -76,7 +76,9 @@ MAX_TILES_PER_GAUSSIAN = 64    # K escalation stops here
 def raster_config(cfg: TrainConfig) -> RasterConfig:
     r = cfg.raster
     return RasterConfig(tile_h=r.tile_h, tile_w=r.tile_w, chunk=r.chunk,
+                        max_per_tile=r.max_per_tile,
                         max_tiles_per_gaussian=r.max_tiles_per_gaussian,
+                        pairs_per_gaussian=r.pairs_per_gaussian,
                         exact_cull=r.exact_cull)
 
 
@@ -128,7 +130,8 @@ def compute_loss(params: Dict, probe: torch.Tensor, batch: Dict,
     total = sum(float(w.get(k, 0.0)) * v for k, v in losses.items())
     aux = {"losses": losses, "radii": out.radii,
            "psnr": L.psnr(torch.clamp(im, 0, 1), batch["im"]),
-           "n_dropped": out.n_dropped_rect,
+           "n_dropped": (out.n_dropped_capacity + out.n_dropped_rect
+                         + out.n_dropped_tile_overflow),
            "n_dropped_rect": out.n_dropped_rect}
     return total, aux
 

@@ -69,7 +69,9 @@ def test_port_imports_no_jax():
                 "convert", "_build", "ops.cuda.sol_probe",
                 "tools.bench_sol", "native", "train.checkpoint",
                 "eval.metrics", "eval.lpips", "eval.tracking",
-                "eval.suite"):
+                "eval.suite", "ops.playback", "ops.debug",
+                "viz.live_viewer", "viz.network_gui", "utils.timing",
+                "utils.pose_utils", "utils.image_utils"):
         assert f"dynamic3dgaussians_tpu_torch.{mod}" in names
     assert int(count) == len(names)
 
@@ -93,7 +95,11 @@ def _tiny():
                                    "render_frame", "orbit_render", "cli",
                                    "cli_train", "train", "bench_sol",
                                    "evaluate", "evaluate_suite",
-                                   "track_pixels"])
+                                   "track_pixels", "cli_view",
+                                   "cli_view_gui", "serve",
+                                   "render_playback", "build_cache",
+                                   "orbit_render_playback",
+                                   "checkpoint_source", "network_gui"])
 def test_no_device_without_cuda_raises(monkeypatch, tmp_path, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     params, cam = _tiny()
@@ -126,6 +132,35 @@ def test_no_device_without_cuda_raises(monkeypatch, tmp_path, entry):
                 track_pixels
             stacked = {k: v[None] for k, v in params.items()}
             track_pixels(stacked, cam, np.zeros((1, 2), np.float32))
+        elif entry in ("cli_view", "cli_view_gui"):
+            path = texp.save_params([params], str(tmp_path))
+            cli.main(["view", "--port", "0"]
+                     + (["--params", path] if entry == "cli_view" else
+                        ["--gui_host", "127.0.0.1", "--gui_port", "1"]))
+        elif entry == "serve":
+            from dynamic3dgaussians_tpu_torch.viz.live_viewer import serve
+            serve(params, port=0)
+        elif entry == "checkpoint_source":
+            from dynamic3dgaussians_tpu_torch.viz.live_viewer import \
+                CheckpointSource
+            CheckpointSource(params)
+        elif entry == "network_gui":
+            from dynamic3dgaussians_tpu_torch.viz.network_gui import \
+                NetworkGUI
+            NetworkGUI(port=0)
+        elif entry in ("render_playback", "build_cache"):
+            from dynamic3dgaussians_tpu_torch.ops import playback
+            geom = (params["means3D"], np.ones(8, np.float32),
+                    np.full((8, 3), 0.05, np.float32),
+                    params["unnorm_rotations"])
+            cache = playback.build_cache(cam, *geom, device="cpu")
+            if entry == "build_cache":
+                playback.build_cache(cam, *geom)
+            else:
+                playback.render_playback(cam, geom[0], params["rgb_colors"],
+                                         *geom[1:], cache)
+        elif entry == "orbit_render_playback":
+            tvr.orbit_render(params, n_frames=2, w=32, h=32, resort_every=2)
         elif entry == "cli_train":
             cli.main(["train", "--synthetic", "--timesteps", "1",
                       "--iters_first", "1", "--output", str(tmp_path)])

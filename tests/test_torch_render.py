@@ -213,7 +213,7 @@ def test_render_gradients_flow_to_inputs():
 
 @pytest.mark.parametrize("kwargs,exc", [
     (dict(method="cuda"), ValueError),
-    (dict(method="tiled"), ValueError),
+    (dict(method="pallas"), ValueError),
     (dict(config="depth_mode"), ValueError),
 ])
 def test_render_rejects_bad_options(kwargs, exc):

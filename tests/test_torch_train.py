@@ -391,7 +391,8 @@ def test_config_json_round_trips_between_packages():
     tcfg = tconf.TrainConfig.from_json(jcfg.to_json())
     assert json.loads(tcfg.to_json()) == json.loads(jcfg.to_json())
     assert tcfg.raster.render_method() == "auto"
-    for bad in (dict(method="tiled"), dict(power_impl="mxu_fused"),
+    assert tconf.RasterSettings(method="tiled").render_method() == "tiled"
+    for bad in (dict(method="xla"), dict(power_impl="mxu_fused"),
                 dict(pack_records=True)):
         with pytest.raises(ValueError):
             tconf.RasterSettings(**bad).render_method()
