@@ -29,7 +29,13 @@ exact render, a stale one by PSNR, the plain K1 on its table; key, cached
 and exact frame times) and `cli visualize --resort-every 8`, and the
 viewer of `cli view` over the trained params.npz (HTTP page, meta and
 frames in every mode, the playback caches it builds, the network GUI
-reached by its client and by the browser bridge); the plain "tiled"
+reached by its client and by the browser bridge); the Feature-3DGS
+trainer on the bench cameras written as a COLMAP model of the 200k
+points, SH degree 3 and 32 feature channels (K1 and K2 once per
+iteration at CV 40; the trained model's record table and render through
+the kernels against the plain path; PLY save and reload, capture and
+restore); the ego + static trainer over 3 timesteps (the ego render and
+the 4 static ones each step); the plain "tiled"
 render method against the kernel path (image and gradients) with its drop
 counters at the bench view; the approximate kNN at the scene's ~100k
 foreground points; and the probe's entry point `tools/bench_sol.py` --
@@ -78,6 +84,10 @@ ROW_ATOL_BWD = 1e-4
 # kernel-path render gradients against the frozen fixtures: the CPU row of
 # tests/fixtures/TOLERANCES.md, |g - fixture| <= rel * max(|fixture|, 1)
 REL_GOLDEN = 1e-2
+# a render's gradients through the kernels against the plain path, both on
+# the card, |kernel - plain| <= rel * max(|plain|, 1): the CPU one-step
+# tests' limit (tests/test_torch_feature_trainer.py); sums in other orders
+REL_RENDER_GRAD = 1e-3
 # K3 against its plain version. The scalar of each walk (the sum of its two
 # parts): relative error. The same cell pipeline, the scan and the sums over
 # 256 pixels in another order (compute variants); sums of 4096 values per
@@ -373,17 +383,14 @@ def table_stats(table, rec_t, starts, counts, n_active):
     return stats
 
 
-def phase_k1(table, extra_key, device, smi):
-    """K1 against its plain version at full width on `table` ("bench": the
-    bench view; "stop": the stopping table)."""
+def k1_against_plain(rec_t, starts, counts, n_chan, kw):
+    """K1 against its plain version on one record table: the channel and
+    alpha rows, the depth row (`n_chan`), log2 T and the chunks walked per
+    tile, under the K1 tolerances. Returns (errors with "ok" and the
+    tolerances, the kernel's chunks walked)."""
     import torch
     from dynamic3dgaussians_tpu_torch.ops.cuda.raster_fwd import (
         composite_tiles, composite_tiles_torch)
-    from dynamic3dgaussians_tpu_torch.tools.bench_sol import cuda_ms
-
-    make, k_slots = TABLES[table]
-    rec_t, starts, counts, n_chan, kw = bench_records(make(), extra_key,
-                                                      device, k=k_slots)
     n_val = rec_t.shape[0] - 8
     raw_k, logt_k, nact_k = composite_tiles(rec_t, starts, counts, **kw)
     torch.cuda.synchronize()
@@ -403,6 +410,26 @@ def phase_k1(table, extra_key, device, smi):
     ok = (err_chan <= ATOL_CHAN and err_depth <= ATOL_DEPTH
           and err_logt <= ATOL_LOGT and nact_equal >= NACT_EQUAL_MIN
           and nact_maxdiff <= 1)
+    return dict(err_chan=err_chan, err_depth=err_depth, err_logt=err_logt,
+                n_active_equal=nact_equal, n_active_maxdiff=nact_maxdiff,
+                tol=dict(chan=ATOL_CHAN, depth=ATOL_DEPTH, log_t=ATOL_LOGT,
+                         n_active_equal=NACT_EQUAL_MIN), ok=ok), nact_k
+
+
+def phase_k1(table, extra_key, device, smi):
+    """K1 against its plain version at full width on `table` ("bench": the
+    bench view; "stop": the stopping table)."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.ops.cuda.raster_fwd import (
+        composite_tiles, composite_tiles_torch)
+    from dynamic3dgaussians_tpu_torch.tools.bench_sol import cuda_ms
+
+    make, k_slots = TABLES[table]
+    rec_t, starts, counts, n_chan, kw = bench_records(make(), extra_key,
+                                                      device, k=k_slots)
+    n_val = rec_t.shape[0] - 8
+    errs, nact_k = k1_against_plain(rec_t, starts, counts, n_chan, kw)
+    ok = errs.pop("ok")
 
     def run_k():
         composite_tiles(rec_t, starts, counts, **kw)
@@ -416,11 +443,7 @@ def phase_k1(table, extra_key, device, smi):
     work = dict(cells, **k1_work(cells, rec_t, starts.shape[0], n_val))
     rec = dict(phase="k1_vs_plain", table=table, cv=n_val, extra=extra_key,
                k_slots=k_slots, n_pairs=int(counts.sum()),
-               ne_pad=rec_t.shape[1], n_dropped_rect=0, err_chan=err_chan,
-               err_depth=err_depth, err_logt=err_logt,
-               n_active_equal=nact_equal, n_active_maxdiff=nact_maxdiff,
-               tol=dict(chan=ATOL_CHAN, depth=ATOL_DEPTH, log_t=ATOL_LOGT,
-                        n_active_equal=NACT_EQUAL_MIN),
+               ne_pad=rec_t.shape[1], n_dropped_rect=0, **errs,
                ms=ms, plain_ms=plain_ms,
                ns_per_walked_cell=ms * 1e6 / cells["walked_cells"],
                card=smi, **work)
@@ -430,20 +453,16 @@ def phase_k1(table, extra_key, device, smi):
     return rec
 
 
-def phase_k2(table, extra_key, device, smi):
-    """K2 against its plain version at full width on `table`, on K1's real
-    outputs and a seeded cotangent; a second launch must give bitwise the
-    same d_out."""
+def k2_against_plain(rec_t, starts, counts, kw, device):
+    """K2 against its plain version on one record table, on K1's real
+    outputs and a seeded cotangent, under the row rule; a second launch
+    must give bitwise the same table. Returns (errors with "ok" and the
+    tolerances, K2's launch arguments)."""
     import torch
     from dynamic3dgaussians_tpu_torch.ops.cuda.raster_bwd import (
         composite_tiles_bwd, composite_tiles_bwd_torch)
     from dynamic3dgaussians_tpu_torch.ops.cuda.raster_fwd import \
         composite_tiles
-    from dynamic3dgaussians_tpu_torch.tools.bench_sol import cuda_ms
-
-    make, k_slots = TABLES[table]
-    rec_t, starts, counts, _, kw = bench_records(make(), extra_key, device,
-                                                 k=k_slots)
     n_val = rec_t.shape[0] - 8
     raw, log_t, n_active = composite_tiles(rec_t, starts, counts, **kw)
     d_raw = torch.as_tensor(np.random.RandomState(3).normal(
@@ -463,11 +482,36 @@ def phase_k2(table, extra_key, device, smi):
     k, p = out_k[rows, :n_live], out_p[rows, :n_live]
     scale = p.abs().amax(dim=1, keepdim=True).clamp(min=1e-30)
     excess = ((k - p).abs() - RTOL_BWD * p.abs() - ROW_ATOL_BWD * scale)
-    err_abs = float((k - p).abs().max())
-    err_row = float(((k - p).abs() / scale).max())
     outside = max(float(out_k[6:8].abs().max()),
                   float(out_k[:, n_live:].abs().max()))
-    ok = float(excess.max()) <= 0.0 and outside == 0.0 and repeat_equal
+    return dict(err_abs=float((k - p).abs().max()),
+                err_rel_to_row_max=float(((k - p).abs() / scale).max()),
+                outside_segments_max=outside,
+                repeat_bitwise_equal=repeat_equal,
+                grad_row_max=[float(x) for x in scale.reshape(-1)[:6]],
+                tol=dict(rtol=RTOL_BWD, row_atol=ROW_ATOL_BWD),
+                ok=(float(excess.max()) <= 0.0 and outside == 0.0
+                    and repeat_equal)), args
+
+
+def phase_k2(table, extra_key, device, smi):
+    """K2 against its plain version at full width on `table`, on K1's real
+    outputs and a seeded cotangent; a second launch must give bitwise the
+    same d_out."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.ops.cuda.raster_bwd import (
+        composite_tiles_bwd, composite_tiles_bwd_torch)
+    from dynamic3dgaussians_tpu_torch.ops.cuda.raster_fwd import \
+        composite_tiles
+    from dynamic3dgaussians_tpu_torch.tools.bench_sol import cuda_ms
+
+    make, k_slots = TABLES[table]
+    rec_t, starts, counts, _, kw = bench_records(make(), extra_key, device,
+                                                 k=k_slots)
+    n_val = rec_t.shape[0] - 8
+    errs, args = k2_against_plain(rec_t, starts, counts, kw, device)
+    ok = errs.pop("ok")
+    n_active, n_live = args[3], int(counts.sum())
 
     def run_k():
         composite_tiles_bwd(*args, **kw)
@@ -481,11 +525,7 @@ def phase_k2(table, extra_key, device, smi):
     work = dict(cells, **k2_work(cells, rec_t, starts.shape[0], n_val))
     rec = dict(phase="k2_vs_plain", table=table, cv=n_val, extra=extra_key,
                k_slots=k_slots, n_pairs=n_live, ne_pad=rec_t.shape[1],
-               err_abs=err_abs, err_rel_to_row_max=err_row,
-               outside_segments_max=outside, repeat_bitwise_equal=repeat_equal,
-               grad_row_max=[float(x) for x in scale.reshape(-1)[:6]],
-               tol=dict(rtol=RTOL_BWD, row_atol=ROW_ATOL_BWD),
-               ms=ms, plain_ms=plain_ms,
+               **errs, ms=ms, plain_ms=plain_ms,
                ns_per_walked_cell=ms * 1e6 / cells["walked_cells"],
                card=smi, **work)
     emit(rec)
@@ -735,6 +775,19 @@ def views_psnr(params, alive, frames, device):
     return out_psnr, cut
 
 
+def bench_gt(scene):
+    """The bench scene as the synthetic layouts' ground truth: its
+    foreground (the rows of seg 1, which move over the timesteps) first."""
+    seg = scene["seg_colors"][:, 0]
+    fg_first = np.argsort(-seg, kind="stable")
+    gt = dict(means=scene["means"], colors=scene["colors"],
+              opac=scene["opac"], scales=scene["scales"],
+              quats=scene["quats"], seg=seg)
+    gt = {k: v[fg_first] for k, v in gt.items()}
+    gt["n_fg"] = int(seg.sum())
+    return gt
+
+
 def train_bench(scene, device, tmp, radius=TRAIN_RADIUS, method=None,
                 checkpoint_every=0):
     """Write the bench scene as a 3-timestep, 4-camera 640x360
@@ -760,13 +813,7 @@ def train_bench(scene, device, tmp, radius=TRAIN_RADIUS, method=None,
     from dynamic3dgaussians_tpu_torch.viz.export import load_params
     from dynamic3dgaussians_tpu_torch.viz.render import params_at_t
 
-    seg = scene["seg_colors"][:, 0]
-    fg_first = np.argsort(-seg, kind="stable")    # the rows that move
-    gt = dict(means=scene["means"], colors=scene["colors"],
-              opac=scene["opac"], scales=scene["scales"],
-              quats=scene["quats"], seg=seg)
-    gt = {k: v[fg_first] for k, v in gt.items()}
-    gt["n_fg"] = int(seg.sum())
+    gt = bench_gt(scene)
     over = {"densify_start": 10, "densify_every": 10,
             "report_every": REPORT_EVERY}
     if method:
@@ -2146,6 +2193,535 @@ def phase_tiled(scene, device, smi):
     return rec
 
 
+# The Feature-3DGS trainer's path: the bench training layout's 4 cameras at
+# 640x360 as a COLMAP model of the bench scene's 200,000 points, into a
+# GaussianModel of SH degree 3 with 32 semantic channels: value rows
+# 3 + 32 + depth + 1 = 37, padded to CV 40.
+FEAT_SH = 3
+FEAT_DIM = 32
+FEAT_CV = 40
+FEAT_HW = (25, 45)          # ViT-S/14's patch grid of a 360x640 frame
+FEAT_PATCH = 14
+FEAT_VIT_DIM = 384          # ViT-S/14's token width: the decoder's target
+FEAT_CROP = 224
+FEAT_STEPS = 30
+FEAT_DEC_STEPS = 10
+FEAT_SCHEDULE = dict(densify_from=10, densify_every=10, densify_until=25,
+                     opacity_reset_every=25, sh_increase_every=10)
+FEAT_RESET_AT = 25          # the trainer resets only up to densify_until
+FEAT_RESET_OPACITY = 0.01
+# The ego trainer's path: 3 timesteps, an ego camera of 2 frames per
+# timestep (its GT turned by -90 degrees, a triangular mask) and the 4
+# bench cameras as the static rig; every step renders the ego frame and
+# the 4 static views.
+EGO_T = 3
+EGO_FRAMES = 2
+EGO_CAM_ID = 4              # the fifth colour-correction slot of the table
+EGO_STEPS = 30
+EGO_STEPS_LATER = 10
+EGO_RENDERS = 1 + TRAIN_CAMS
+EGO_LOSSES = ("loss", "loss_im", "loss_stat_im", "loss_depth")
+
+
+def write_colmap_model(root, cams, points, colors):
+    """A COLMAP binary model under root/sparse/0: one PINHOLE camera (the
+    bench intrinsics), one image `view{i}.png` per camera of `cams`, and
+    the points with their 8-bit colours and empty tracks."""
+    import struct
+    from dynamic3dgaussians_tpu_torch.utils.pose_utils import \
+        quat_from_matrix
+    d = os.path.join(root, "sparse", "0")
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "cameras.bin"), "wb") as fh:
+        fh.write(struct.pack("<Q", 1))
+        fh.write(struct.pack("<iiQQ", 1, 1, W, H))
+        fh.write(struct.pack("<dddd", F, F, W / 2, H / 2))
+    with open(os.path.join(d, "images.bin"), "wb") as fh:
+        fh.write(struct.pack("<Q", len(cams)))
+        for i, cam in enumerate(cams):
+            w2c = cam.w2c.cpu().numpy().astype(np.float64)
+            fh.write(struct.pack("<idddddddi", i + 1,
+                                 *quat_from_matrix(w2c[:3, :3]),
+                                 *w2c[:3, 3], 1))
+            fh.write(f"view{i}.png".encode() + b"\x00")
+            fh.write(struct.pack("<Q", 0))
+    rec = np.zeros(len(points), dtype=[
+        ("id", "<u8"), ("xyz", "<f8", 3), ("rgb", "u1", 3), ("err", "<f8"),
+        ("track_len", "<u8")])
+    rec["id"] = np.arange(1, len(points) + 1)
+    rec["xyz"] = points
+    rec["rgb"] = np.clip(np.round(colors * 255.0), 0, 255)
+    with open(os.path.join(d, "points3D.bin"), "wb") as fh:
+        fh.write(struct.pack("<Q", len(points)))
+        fh.write(rec.tobytes())
+
+
+def patch_extract_fn(seed=0):
+    """A fixed stand-in for ViT-S/14 (no weights ship): per 14x14 patch,
+    the mean colour and its square through a seeded (6, 384) random
+    projection and tanh."""
+    proj = np.random.RandomState(seed).normal(
+        size=(6, FEAT_VIT_DIM)).astype(np.float32)
+
+    def extract(crop):
+        gh, gw = crop.shape[0] // FEAT_PATCH, crop.shape[1] // FEAT_PATCH
+        m = crop[:gh * FEAT_PATCH, :gw * FEAT_PATCH].reshape(
+            gh, FEAT_PATCH, gw, FEAT_PATCH, 3).mean((1, 3))
+        return np.tanh(np.concatenate([m, m * m], -1) @ proj)
+    return extract
+
+
+@contextlib.contextmanager
+def recording_steps(module, log):
+    """`module.make_feature_train_step` for the length of the block, its
+    step appending, after a synchronize, the time and the scalar terms of
+    every iteration to `log`."""
+    import torch
+    make = module.make_feature_train_step
+
+    def wrapped(*a, **k):
+        step = make(*a, **k)
+
+        def rec(*args):
+            out = step(*args)
+            torch.cuda.synchronize()
+            log.append(dict(it=len(log) + 1, time=time.perf_counter(),
+                            loss=float(out[0]),
+                            **{n: float(v) for n, v in out[1].items()
+                               if v.dim() == 0}))
+            return out
+        return rec
+    module.make_feature_train_step = wrapped
+    try:
+        yield
+    finally:
+        module.make_feature_train_step = make
+
+
+def view_losses(args, frames, rcfg, device):
+    """The mean over `frames` of the image L1 and the feature L1 (the
+    rendered features resized to the GT map) of one render each from the
+    render inputs `args`."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.ops.rasterize import render
+    from dynamic3dgaussians_tpu_torch.train.trainer import resize_feature_map
+    l1, fl1 = [], []
+    with torch.no_grad():
+        for fr in frames:
+            out = render(fr["camera"], **args, config=rcfg, device=device)
+            l1.append(float(torch.mean(torch.abs(
+                torch.clamp(out.rgb, 0, 1) - fr["im"]))))
+            gt = fr["gt_feature"]
+            fmap = resize_feature_map(out.extra, gt.shape[:2])
+            fl1.append(float(torch.mean(torch.abs(fmap - gt))))
+    return dict(l1=float(np.mean(l1)), feature_l1=float(np.mean(fl1)))
+
+
+def step_times(log):
+    """ms between consecutive step reports (each read after a
+    synchronize): every step but the first."""
+    return [(b["it"], (b["time"] - a["time"]) * 1e3)
+            for a, b in zip(log, log[1:])]
+
+
+def model_records(model, cam, k):
+    """The record table K1 and K2 see for one render of `model` at `cam`
+    (the render's projection, SH colour, semantic channels and opacity),
+    with K = `k` emission slots."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.ops.projection import project
+    from dynamic3dgaussians_tpu_torch.ops.sh import sh_to_color
+    from dynamic3dgaussians_tpu_torch.ops.sorted_raster import \
+        sorted_records
+    a = model.render_args()
+    with torch.no_grad():
+        proj = project(a["means3d"], a["scales"], a["rotations"], cam)
+        colors = sh_to_color(a["sh_degree"], a["sh"], a["means3d"],
+                             cam.cam_center)
+        op = torch.where(proj.valid, a["opacity"],
+                         torch.zeros_like(a["opacity"]))
+        chans = torch.cat([colors, a["extra_channels"]], dim=-1)
+        rec_t, starts, counts, _ = sorted_records(
+            H, W, proj, chans, op, max_tiles_per_gaussian=k)
+    kw = dict(num_tiles=starts.shape[0], grid_w=-(-W // TILE), tile_h=TILE,
+              tile_w=TILE, chunk=CHUNK)
+    return rec_t, starts, counts, chans.shape[1], kw
+
+
+def render_vs_plain(model, cam, rcfg, device):
+    """One render of `model` through the kernels (method "cuda") and
+    through their plain versions ("torch"): the image rows apart, and the
+    gradients of a seeded cotangent w.r.t. every render input, relative to
+    max(|g|, 1), beside each input's largest |g|."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.ops.rasterize import render
+    a = model.render_args()
+    keys = ("means3d", "opacity", "scales", "rotations", "sh",
+            "extra_channels")
+    rng = np.random.RandomState(13)
+    ct = {name: torch.as_tensor(rng.normal(size=shape).astype(np.float32),
+                                device=device)
+          for name, shape in (("rgb", (H, W, 3)), ("extra", (H, W, FEAT_DIM)),
+                              ("depth", (H, W)), ("alpha", (H, W)))}
+
+    def run(method):
+        leaves = {k: a[k].detach().clone().requires_grad_(True)
+                  for k in keys}
+        out = render(cam, leaves["means3d"], torch.zeros_like(a["means3d"]),
+                     leaves["opacity"], leaves["scales"], leaves["rotations"],
+                     sh=leaves["sh"], sh_degree=a["sh_degree"],
+                     extra_channels=leaves["extra_channels"], config=rcfg,
+                     method=method, device=device)
+        loss = sum(torch.sum(getattr(out, n) * c) for n, c in ct.items())
+        grads = torch.autograd.grad(loss, [leaves[k] for k in keys])
+        return out, dict(zip(keys, grads))
+
+    out_k, g_k = run("cuda")
+    out_p, g_p = run("torch")
+    err = {n: float((getattr(out_k, n) - getattr(out_p, n)).detach().abs()
+                    .max()) for n in ct}
+    grad_err = {k: float(((g_k[k] - g_p[k]).abs()
+                          / g_p[k].abs().clamp(min=1.0)).max())
+                for k in keys}
+    grad_max = {k: float(g_p[k].abs().max()) for k in keys}
+    ok = (max(err["rgb"], err["extra"], err["alpha"]) <= ATOL_CHAN
+          and err["depth"] <= ATOL_DEPTH
+          and max(grad_err.values()) <= REL_RENDER_GRAD
+          and all(bool(torch.isfinite(g).all()) for g in g_k.values()))
+    return dict(err=err, grad_rel_err=grad_err, grad_abs_max=grad_max,
+                tol=dict(chan=ATOL_CHAN, depth=ATOL_DEPTH,
+                         grad_rel=REL_RENDER_GRAD), ok=ok)
+
+
+def phase_feature_main_path(scene, device, smi, tmp):
+    """The Feature-3DGS trainer at full width: the bench scene's 200,000
+    points and the 4 bench cameras written as a COLMAP model and read by
+    `scene_from_colmap` into GaussianModel(sh_degree=3, semantic_dim=32)
+    (800,768 rows), the port's renders of the bench scene as the images,
+    32-channel GT feature maps at 25x45 from `data/features.py` (the
+    multi-crop pyramid and the global PCA over `patch_extract_fn`), then
+    `training` for 30 iterations (densify at 10 and 20, an opacity reset
+    at 25, the SH degree up every 10), then 10 with the decoder up to
+    384 channels. K1 and K2 are counted over each run and must launch once
+    per iteration; the reset must run once, at 25, and leave no live
+    opacity above 0.01. The image and feature L1 over the 4 views must fall
+    from the initial model to the model just before the reset. Then one
+    render of the trained model: its drop
+    counters, its record table (CV 40) through K1 and K2 against their
+    plain versions, and the render's image and gradients through the
+    kernels against the plain path; `Scene.save` and a reload (means3D
+    bitwise) and capture / restore (bitwise)."""
+    import warnings
+
+    import torch
+    from dynamic3dgaussians_tpu_torch.data import features as FE
+    from dynamic3dgaussians_tpu_torch.data.synthetic import (init_point_cloud,
+                                                             make_dataset)
+    from dynamic3dgaussians_tpu_torch.models.gaussian_model import \
+        GaussianModel
+    from dynamic3dgaussians_tpu_torch.models.scene import (Scene,
+                                                           scene_from_colmap)
+    from dynamic3dgaussians_tpu_torch.ops.rasterize import (RasterConfig,
+                                                            render)
+    from dynamic3dgaussians_tpu_torch.train import feature_trainer as FT
+
+    t0 = time.perf_counter()
+    gt = bench_gt(scene)
+    ds, _, cams = make_dataset(gt, num_t=1, num_cams=TRAIN_CAMS, w=W, h=H,
+                               f=F, radius=TRAIN_RADIUS, device=device)
+    cloud = init_point_cloud(gt)
+    root = os.path.join(tmp, "feature")
+    write_colmap_model(root, cams, cloud[:, :3], cloud[:, 3:6])
+    model = GaussianModel(sh_degree=FEAT_SH, semantic_dim=FEAT_DIM,
+                          device=device)
+    sc = scene_from_colmap(root, model, model_path=os.path.join(root, "out"))
+    frames = sc.getTrainCameras()
+    views = [int(fr["name"][len("view"):-len(".png")]) for fr in frames]
+    hosts = [ds[0][v]["im"].cpu().numpy() for v in views]
+    extract = patch_extract_fn()
+    feat_dir = os.path.join(root, "features")
+    FE.extract_sequence(hosts, extract, feat_dir, out_dim=FEAT_DIM,
+                        crop_sizes=(FEAT_CROP,), out_hw=FEAT_HW)
+    wide = [FE.blend_feature_pyramid(h, extract, (FEAT_CROP,),
+                                     out_hw=FEAT_HW) for h in hosts]
+    for i, (fr, v) in enumerate(zip(frames, views)):
+        fr["im"] = ds[0][v]["im"]
+        fr["gt_feature"] = torch.as_tensor(FE.load_feature_map(feat_dir, i),
+                                           device=device)
+    model.training_setup()
+    setup_s = time.perf_counter() - t0
+    rcfg = RasterConfig()
+
+    def snapshot():
+        return {k: (v.detach().clone() if torch.is_tensor(v) else v)
+                for k, v in model.render_args().items()}
+
+    resets, before_reset, log = [], [], []
+    reset = model.reset_opacity
+
+    def counted_reset():
+        # the renders of the views run after the run, outside its count
+        before_reset.append(snapshot())
+        reset()
+        op = torch.sigmoid(model.params["logit_opacities"][:, 0])
+        resets.append(dict(it=len(log), max_live_opacity=float(
+            op[model.alive].max())))
+    model.reset_opacity = counted_reset
+
+    def run(run_frames, steps, **kw):
+        log.clear()
+        zero_launches()
+        with recording_steps(FT, log):
+            _, dec = FT.training(run_frames, model, iterations=steps,
+                                 rcfg=rcfg, **kw)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        ms = step_times(log)
+        first, last = log[0], log[-1]
+        return dec, dict(
+            steps=steps, launches=launches, step_ms=ms,
+            step_ms_median=float(np.median([x for _, x in ms])),
+            first={k: first[k] for k in ("it", "loss", "l1",
+                                         "feature_l1")},
+            last={k: last[k] for k in ("it", "loss", "l1", "feature_l1")},
+            n_points=model.num_points,
+            active_sh_degree=model.active_sh_degree)
+
+    n0 = model.num_points
+    views_initial = view_losses(snapshot(), frames, rcfg, device)
+    _, run1 = run(frames, FEAT_STEPS, **FEAT_SCHEDULE)
+    views = dict(initial=views_initial,
+                 before_reset=[view_losses(a, frames, rcfg, device)
+                               for a in before_reset],
+                 after_run=view_losses(snapshot(), frames, rcfg, device))
+    del before_reset[:]
+    dec_frames = [dict(fr, gt_feature=torch.as_tensor(wide[i],
+                                                      device=device))
+                  for i, fr in enumerate(frames)]
+    dec, run2 = run(dec_frames, FEAT_DEC_STEPS, gt_feature_dim=FEAT_VIT_DIM)
+
+    cam = frames[0]["camera"]
+    with torch.no_grad():
+        out = render(cam, **model.render_args(), config=rcfg, device=device)
+    drops = {c: int(getattr(out, c)) for c in (
+        "n_dropped_rect", "n_dropped_capacity", "n_dropped_tile_overflow")}
+    rec_t, starts, counts, n_chan, kw = model_records(
+        model, cam, rcfg.max_tiles_per_gaussian)
+    cv = rec_t.shape[0] - 8
+    k1_errs, _ = k1_against_plain(rec_t, starts, counts, n_chan, kw)
+    k2_errs, _ = k2_against_plain(rec_t, starts, counts, kw, device)
+    del rec_t, starts, counts
+    plain = render_vs_plain(model, cam, rcfg, device)
+
+    n = model.num_points
+    saved = sc.save(FEAT_STEPS + FEAT_DEC_STEPS)
+    back = GaussianModel(sh_degree=FEAT_SH, semantic_dim=FEAT_DIM,
+                         device=device)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # the splat PLY holds DC only
+        Scene(back, model_path=sc.model_path, load_iteration=-1)
+    ply_bitwise = bool(torch.equal(back.params["means3D"][:n],
+                                   model.params["means3D"][:n]))
+    state = model.capture()
+    again = GaussianModel(sh_degree=FEAT_SH, semantic_dim=FEAT_DIM,
+                          device=device).restore(state)
+    tables = (("params", model.params, again.params),
+              ("variables", model.variables, again.variables),
+              ("opt_mu", model.opt_state.mu, again.opt_state.mu),
+              ("opt_nu", model.opt_state.nu, again.opt_state.nu))
+    capture_bitwise = all(torch.equal(x[k], y[k]) for _, x, y in tables
+                          for k in x)
+    rec = dict(phase="feature_main_path", card=smi, w=W, h=H,
+               cameras=len(frames), n_points_initial=n0,
+               capacity=int(model.alive.shape[0]), sh_degree=FEAT_SH,
+               semantic_dim=FEAT_DIM, gt_feature_hw=list(FEAT_HW), cv=cv,
+               setup_s=setup_s, runs=[run1, run2], resets=resets,
+               views_l1=views,
+               launches={k: run1["launches"][k] + run2["launches"][k]
+                         for k in run1["launches"]},
+               decoder_shape=[list(dec.w1.shape), list(dec.w2.shape)],
+               drops_trained_render=drops, k1_vs_plain=k1_errs,
+               k2_vs_plain=k2_errs, render_vs_plain=plain,
+               ply_dir=os.path.relpath(saved, tmp), ply_rows=n,
+               ply_dead_rows=int((~model.alive[:n]).sum()),
+               ply_means3d_bitwise=ply_bitwise,
+               capture_restore_bitwise=capture_bitwise)
+    emit(rec)
+    for r in (run1, run2):
+        want = dict(raster_fwd=r["steps"], raster_bwd=r["steps"],
+                    sol_probe=0)
+        if r["launches"] != want:
+            raise AssertionError(f"the feature trainer launched "
+                                 f"{r['launches']} in {r['steps']} steps")
+    if ([r["it"] for r in resets] != [FEAT_RESET_AT]
+            or resets[0]["max_live_opacity"] > FEAT_RESET_OPACITY * 1.0001):
+        raise AssertionError(f"opacity resets {resets}")
+    for key in ("l1", "feature_l1"):
+        if not views["before_reset"][0][key] < views["initial"][key]:
+            raise AssertionError(f"{key} over the views did not fall: "
+                                 f"{views}")
+    if cv != FEAT_CV or run1["active_sh_degree"] != FEAT_SH:
+        raise AssertionError(f"CV {cv}, SH degree {model.active_sh_degree}")
+    if not (k1_errs["ok"] and k2_errs["ok"] and plain["ok"]):
+        raise AssertionError(f"the kernels disagree with their plain "
+                             f"versions on the trained model: {rec}")
+    if not (ply_bitwise and capture_bitwise):
+        raise AssertionError(f"save / reload or capture / restore: {rec}")
+    return rec
+
+
+def triangular_mask(h, w, device):
+    """(h, w) {0, 1}: 1 but for the bottom-right triangle of half the
+    height and width (the rig's corner, masked out of the ego loss)."""
+    import torch
+    y = (torch.arange(h, device=device, dtype=torch.float32) + 0.5) / h
+    x = (torch.arange(w, device=device, dtype=torch.float32) + 0.5) / w
+    return ((y[:, None] + x[None, :]) <= 1.5).to(torch.float32)
+
+
+def gt_views(gt, cams, t, device):
+    """The ground truth of timestep t seen by `cams`: the image and the
+    depth (un-premultiplied where alpha > 0.5, else 0)."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.data.synthetic import animate
+    from dynamic3dgaussians_tpu_torch.ops.rasterize import (RasterConfig,
+                                                            render)
+    means = torch.as_tensor(animate(gt, t, EGO_T), device=device)
+    fixed = [torch.as_tensor(gt[k], device=device)
+             for k in ("colors", "opac", "scales", "quats")]
+    views = []
+    with torch.no_grad():
+        for cam in cams:
+            out = render(cam, means, *fixed,
+                         config=RasterConfig(max_tiles_per_gaussian=64),
+                         device=device)
+            depth = torch.where(out.alpha > 0.5, out.depth /
+                                out.alpha.clamp(min=1e-6),
+                                torch.zeros_like(out.depth))
+            views.append((torch.clamp(out.rgb, 0.0, 1.0), depth))
+    return views
+
+
+def phase_ego_main_path(scene, device, smi):
+    """The ego + static trainer at full width: `train_ego` over 3 timesteps
+    of the bench scene (its foreground moving), an ego camera of 2 frames
+    per timestep moving in from radius 5 to 4 (GT turned by -90 degrees,
+    `rot90_ego=True`, the triangular mask), the 4 bench cameras as the
+    static rig with GT depth from the port's render; 30 steps at t = 0
+    (densify at 10 and 20) and 10 at each later one. K1 and K2 must launch
+    5 times per step (the ego render and the 4 static ones). Reports the
+    step times per timestep, the loss terms and the static views' PSNR
+    before and after each timestep (it must rise at t = 0)."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.convert import params_from_jax
+    from dynamic3dgaussians_tpu_torch.data.synthetic import init_point_cloud
+    from dynamic3dgaussians_tpu_torch.models import gaussians as G
+    from dynamic3dgaussians_tpu_torch.ops.camera import orbit_cameras
+    from dynamic3dgaussians_tpu_torch.train.config import TrainConfig
+    from dynamic3dgaussians_tpu_torch.train.ego_trainer import train_ego
+    from dynamic3dgaussians_tpu_torch.viz.live_viewer import orbit_camera
+
+    t0 = time.perf_counter()
+    gt = bench_gt(scene)
+    stat_cams = orbit_cameras(center=(0.0, 0.0, 0.0), radius=TRAIN_RADIUS,
+                              height=-1.0, n=TRAIN_CAMS, w=W, h=H, f=F,
+                              device=device)
+    n_ego = EGO_T * EGO_FRAMES
+    ego_cams = [orbit_camera([0.0, 0.0, 0.0], az=0.4 + 0.1 * j, el=0.15,
+                             radius=5.0 - j / (n_ego - 1), w=W, h=H, f=F,
+                             device=device) for j in range(n_ego)]
+    mask = triangular_mask(W, H, device)      # in the turned frame
+    ego_ds, stat_ds = [], []
+    for t in range(EGO_T):
+        stat_ds.append([dict(camera=cam, im=im, gt_depth=depth, cam_id=c)
+                        for c, (cam, (im, depth)) in enumerate(zip(
+                            stat_cams, gt_views(gt, stat_cams, t, device)))])
+        cams_t = ego_cams[t * EGO_FRAMES:(t + 1) * EGO_FRAMES]
+        ego_ds.append([dict(camera=cam, im=torch.rot90(im, k=-1, dims=(0, 1)),
+                            mask=mask, cam_id=EGO_CAM_ID)
+                       for cam, (im, _) in zip(cams_t, gt_views(
+                           gt, cams_t, t, device))])
+    pt = init_point_cloud(gt)
+    w2c = np.stack([c.w2c.cpu().numpy() for c in stat_cams])
+    cfg = TrainConfig(num_timesteps=EGO_T, iters_first_timestep=EGO_STEPS,
+                      iters_per_timestep=EGO_STEPS_LATER, densify_start=10,
+                      densify_every=10, report_every=1)
+    setup_s = time.perf_counter() - t0
+    log, densify = [], []
+
+    def on_step(t, i, m):
+        torch.cuda.synchronize()
+        log.append(dict(t=t, it=i, time=time.perf_counter(),
+                        **{k: float(v) for k, v in m.items()}))
+
+    zero_launches()
+    t0 = time.perf_counter()
+    out, _, _ = train_ego(
+        ego_ds, stat_ds, cfg, pt, w2c, rot90_ego=True, device=device,
+        callbacks={"on_step": on_step, "on_densify": lambda t, i, s:
+                   densify.append(dict(i=i, **{k: int(v) for k, v in
+                                               s._asdict().items()}))})
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = read_launches()
+
+    p0, v0 = G.init_params(pt, w2c, device=device)
+    per_t = []
+    for t in range(EGO_T):
+        if t == 0:
+            before, cut_b = views_psnr(p0, v0["alive"], stat_ds[t], device)
+        else:
+            before, cut_b = views_psnr(params_from_jax(
+                {**out[0], **out[t - 1]}, device), None, stat_ds[t], device)
+        after, cut_a = views_psnr(params_from_jax({**out[0], **out[t]},
+                                                  device), None,
+                                  stat_ds[t], device)
+        rows = [r for r in log if r["t"] == t]
+        ms = step_times(rows)
+        per_t.append(dict(
+            t=t, steps=len(rows), step_ms=ms,
+            step_ms_median=float(np.median([x for _, x in ms])),
+            losses_first={k: v for k, v in rows[0].items()
+                          if k.startswith("loss")},
+            losses_last={k: v for k, v in rows[-1].items()
+                         if k.startswith("loss")},
+            views_psnr_before=before, views_psnr_after=after,
+            views_psnr_mean_before=float(np.mean(before)),
+            views_psnr_mean_after=float(np.mean(after)),
+            views_psnr_cut_rects=[cut_b, cut_a]))
+    total = len(log)
+    rec = dict(phase="ego_main_path", card=smi, w=W, h=H,
+               ego_frames_per_t=EGO_FRAMES, static_cameras=TRAIN_CAMS,
+               n_gaussians=int(pt.shape[0]), setup_s=setup_s, run_s=run_s,
+               steps=total, launches=launches,
+               launches_per_step={k: v / total for k, v in launches.items()},
+               densify=densify, n_out=int(out[0]["means3D"].shape[0]),
+               timesteps=per_t)
+    emit(rec)
+    want_steps = EGO_STEPS + (EGO_T - 1) * EGO_STEPS_LATER
+    want = dict(raster_fwd=EGO_RENDERS * want_steps,
+                raster_bwd=EGO_RENDERS * want_steps, sol_probe=0)
+    if total != want_steps or launches != want:
+        raise AssertionError(f"train_ego launched {launches} in {total} "
+                             f"steps; expected {want}")
+    for ts in per_t:
+        keys = list(EGO_LOSSES) + ([f"loss_{k}" for k in PHYSICS]
+                                   if ts["t"] else [])
+        rows = [r for r in log if r["t"] == ts["t"]]
+        if not all(k in r and np.isfinite(r[k]) for r in rows for k in keys):
+            raise AssertionError(f"t = {ts['t']}: loss terms {keys} per "
+                                 f"step: {ts}")
+        if any(ts["views_psnr_cut_rects"]):
+            raise AssertionError(f"t = {ts['t']}: {ts}")
+    if not (per_t[0]["views_psnr_mean_after"]
+            > per_t[0]["views_psnr_mean_before"]):
+        raise AssertionError(f"t = 0: the static views' PSNR did not rise: "
+                             f"{per_t[0]}")
+    if [d["i"] for d in densify] != [10, 20]:
+        raise AssertionError(f"densify at {densify}")
+    return rec
+
+
 def floor_rec(k1, k2, k3, train_launches, smi):
     """ns per walked cell of K1 and K2 at the bench view against K3's
     card-wide floor for the same cell pipeline, and each kernel's gap to
@@ -2217,17 +2793,23 @@ def main() -> int:
         eval_rec = phase_evaluate_main_path(train_rec, device, smi)
         track_rec = phase_tracking(train_rec, device, smi)
         viewer_rec = phase_view_main_path(train_rec, device, smi)
+        feature_rec = phase_feature_main_path(scene, device, smi, tmp)
+    ego_rec = phase_ego_main_path(scene, device, smi)
     phase_tiled(scene, device, smi)
     phase_knn_approx(scene, device, smi)
     probe_rec = phase_probe_main_path(k3, device, smi)
     b1, b2 = k1["bench", 8], k2["bench", 8]
     floor_rec(b1, b2, k3, train_rec["launches"], smi)
 
-    # both render paths pass RGB + 3 seg channels: CV = 8
+    # the kernels' times below are at CV 8 (RGB + 3 seg channels, the
+    # bench view), the table of `cli train`; the feature path runs K1 and
+    # K2 at CV 40 (RGB + 32 semantic channels) and the ego path at CV 8,
+    # 5 renders per step
     paths = (("visualize", view_rec), ("train", train_rec),
              ("probe", probe_rec), ("evaluate", eval_rec),
              ("tracking", track_rec), ("playback", pb_rec),
-             ("view", viewer_rec))
+             ("view", viewer_rec), ("feature", feature_rec),
+             ("ego", ego_rec))
     by_path = {name: {p: r["launches"][name] for p, r in paths}
                for name in ("raster_fwd", "raster_bwd", "sol_probe")}
     wide = k3["stream_compute/card_wide"]

@@ -90,6 +90,24 @@ def checkpoint_from_jax(tree: Dict, device: DeviceLike = None):
             variables_from_jax(tree["variables"], dev), cursor)
 
 
+def gaussian_model_from_jax(state: Dict, device: DeviceLike = None):
+    """The reference's `GaussianModel.capture()` (numpy dicts) -> the
+    port's `GaussianModel` on `device` (default `cuda`), restored from it
+    unchanged; the SH degree and the semantic width are read off the
+    tables. The lr settings are not part of a capture: call
+    `training_setup` to train on."""
+    from dynamic3dgaussians_tpu_torch.models.gaussian_model import \
+        GaussianModel
+    params = state["params"]
+    k = np.asarray(params["features_rest"]).shape[1] + 1
+    sem = params.get("semantic_feature")
+    model = GaussianModel(sh_degree=int(round(np.sqrt(k))) - 1,
+                          semantic_dim=0 if sem is None
+                          else int(np.asarray(sem).shape[1]),
+                          device=device)
+    return model.restore(state)
+
+
 def raster_config_from_jax(cfg) -> RasterConfig:
     """Port RasterConfig from the reference's semantic fields.
 

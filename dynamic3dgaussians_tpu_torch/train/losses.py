@@ -9,6 +9,8 @@ Port of `dynamic3dgaussians_tpu/train/losses.py`:
   * the default loss weights
   * the physics losses of t > 0 (`physics_losses`): rigid, rot, iso,
     floor, bg and soft_col_cons, masked at full capacity
+  * the trainer variants' terms: total variation, the masked image loss,
+    the L1 depth loss and the disparity Pearson loss
 """
 
 from __future__ import annotations
@@ -160,3 +162,38 @@ def physics_losses(act_means: torch.Tensor, act_rots: torch.Tensor,
     losses["soft_col_cons"] = masked_mean(
         _abs(rgb_colors - variables["prev_col"]).sum(dim=-1), alive)
     return losses
+
+
+def tv_loss(img) -> torch.Tensor:
+    """Total-variation smoothness over the first two axes."""
+    dh = torch.mean(_abs(img[1:, :] - img[:-1, :]))
+    dw = torch.mean(_abs(img[:, 1:] - img[:, :-1]))
+    return dh + dw
+
+
+def masked_image_loss(pred, gt, mask, l1_weight: float = 0.8):
+    """Image loss over the masked pixels only (the ego trainer's mask
+    compositing): pixels outside the mask take the ground truth's value, so
+    that neither the L1 nor the SSIM window sees an error there."""
+    m = mask[..., None].to(pred.dtype) if mask.dim() == pred.dim() - 1 \
+        else mask.to(pred.dtype)
+    comp = pred * m + gt * (1.0 - m)
+    return image_loss(comp, gt, l1_weight)
+
+
+def depth_l1_loss(pred_depth, gt_depth, alpha=None, mask=None):
+    """L1 depth loss over the pixels with ground truth (and inside `mask`);
+    the rendered depth is un-premultiplied by `alpha` when given."""
+    d = pred_depth if alpha is None else \
+        pred_depth / torch.clamp(alpha, min=1e-6)
+    valid = gt_depth > 1e-6
+    if mask is not None:
+        valid = valid & (mask > 0.5)
+    return masked_mean(_abs(d - gt_depth), valid)
+
+
+def disparity_pearson_loss(pred_depth, gt_depth, alpha=None):
+    """1 - Pearson correlation of the two disparity maps."""
+    d = pred_depth if alpha is None else \
+        pred_depth / torch.clamp(alpha, min=1e-6)
+    return 1.0 - pearson_corrcoef(1.0 / (d + 1e-6), 1.0 / (gt_depth + 1e-6))

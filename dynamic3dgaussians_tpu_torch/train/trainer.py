@@ -82,6 +82,17 @@ def raster_config(cfg: TrainConfig) -> RasterConfig:
                         exact_cull=r.exact_cull)
 
 
+def resize_feature_map(feat: torch.Tensor, hw) -> torch.Tensor:
+    """(H, W, C) -> (h, w, C) bilinear with half-pixel centres, antialiased
+    when shrinking: the reference's `jax.image.resize(..., "bilinear")`.
+    Returns `feat` itself when the size already matches."""
+    if tuple(feat.shape[:2]) == tuple(hw):
+        return feat
+    return F.interpolate(feat.permute(2, 0, 1)[None], size=tuple(hw),
+                         mode="bilinear", align_corners=False,
+                         antialias=True)[0].permute(1, 2, 0)
+
+
 def compute_loss(params: Dict, probe: torch.Tensor, batch: Dict,
                  variables: Dict, *, is_initial: bool, cfg: TrainConfig,
                  rcfg: RasterConfig):
@@ -111,14 +122,8 @@ def compute_loss(params: Dict, probe: torch.Tensor, batch: Dict,
     if "gt_depth" in batch:
         losses["depth"] = L.depth_pearson_loss(out.depth, batch["gt_depth"])
     if has_feat:
-        # bilinear resize of the rendered feature map to the GT's size
-        feat = out.extra[..., 3:]
         gt_feat = batch["gt_feature"]
-        if tuple(feat.shape[:2]) != tuple(gt_feat.shape[:2]):
-            feat = F.interpolate(feat.permute(2, 0, 1)[None],
-                                 size=tuple(gt_feat.shape[:2]),
-                                 mode="bilinear", align_corners=False,
-                                 antialias=True)[0].permute(1, 2, 0)
+        feat = resize_feature_map(out.extra[..., 3:], gt_feat.shape[:2])
         losses["feature"] = L.image_loss(feat, gt_feat)
     if not is_initial:
         is_fg = params["seg_colors"][:, 0] > 0.5

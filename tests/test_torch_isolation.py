@@ -71,7 +71,9 @@ def test_port_imports_no_jax():
                 "eval.metrics", "eval.lpips", "eval.tracking",
                 "eval.suite", "ops.playback", "ops.debug",
                 "viz.live_viewer", "viz.network_gui", "utils.timing",
-                "utils.pose_utils", "utils.image_utils"):
+                "utils.pose_utils", "utils.image_utils", "data.colmap",
+                "data.features", "models.gaussian_model", "models.scene",
+                "train.feature_trainer", "train.ego_trainer"):
         assert f"dynamic3dgaussians_tpu_torch.{mod}" in names
     assert int(count) == len(names)
 
@@ -99,7 +101,9 @@ def _tiny():
                                    "cli_view_gui", "serve",
                                    "render_playback", "build_cache",
                                    "orbit_render_playback",
-                                   "checkpoint_source", "network_gui"])
+                                   "checkpoint_source", "network_gui",
+                                   "gaussian_model", "feature_decoder",
+                                   "train_ego"])
 def test_no_device_without_cuda_raises(monkeypatch, tmp_path, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     params, cam = _tiny()
@@ -161,6 +165,22 @@ def test_no_device_without_cuda_raises(monkeypatch, tmp_path, entry):
                                          *geom[1:], cache)
         elif entry == "orbit_render_playback":
             tvr.orbit_render(params, n_frames=2, w=32, h=32, resort_every=2)
+        elif entry == "gaussian_model":
+            from dynamic3dgaussians_tpu_torch.models.gaussian_model import \
+                GaussianModel
+            GaussianModel(sh_degree=1)
+        elif entry == "feature_decoder":
+            from dynamic3dgaussians_tpu_torch.train.feature_trainer import \
+                FeatureDecoder
+            FeatureDecoder(4, 8)
+        elif entry == "train_ego":
+            from dynamic3dgaussians_tpu_torch.train.config import TrainConfig
+            from dynamic3dgaussians_tpu_torch.train.ego_trainer import \
+                train_ego
+            pt = np.concatenate([params["means3D"], params["rgb_colors"],
+                                 np.ones((8, 1), np.float32)], axis=1)
+            train_ego([[]], [[]], TrainConfig(num_timesteps=1), pt,
+                      np.eye(4)[None].repeat(2, 0))
         elif entry == "cli_train":
             cli.main(["train", "--synthetic", "--timesteps", "1",
                       "--iters_first", "1", "--output", str(tmp_path)])
