@@ -35,7 +35,15 @@ points, SH degree 3 and 32 feature channels (K1 and K2 once per
 iteration at CV 40; the trained model's record table and render through
 the kernels against the plain path; PLY save and reload, capture and
 restore); the ego + static trainer over 3 timesteps (the ego render and
-the 4 static ones each step); the plain "tiled"
+the 4 static ones each step); the motion-basis trainer (`motion_main_path`:
+`train_motion` from the k-means and from the Procrustes init and
+`train_motion_windowed` on a 6-frame layout of the 4 bench cameras, a
+fused init cloud of 200,000 points and 10 bases, K1 and K2 once per
+step; background rows pinned, the views' PSNR rising, each basis the
+Procrustes run starts from replaying the true motion, K1 and K2 against
+their plain versions on a motion step's record table, a step's loss and
+gradients and `render_flow` through the kernels against the plain path,
+2D tracks lifted through K1 depth renders); the plain "tiled"
 render method against the kernel path (image and gradients) with its drop
 counters at the bench view; the approximate kNN at the scene's ~100k
 foreground points; and the probe's entry point `tools/bench_sol.py` --
@@ -2579,14 +2587,14 @@ def triangular_mask(h, w, device):
     return ((y[:, None] + x[None, :]) <= 1.5).to(torch.float32)
 
 
-def gt_views(gt, cams, t, device):
-    """The ground truth of timestep t seen by `cams`: the image and the
-    depth (un-premultiplied where alpha > 0.5, else 0)."""
+def gt_views(gt, cams, t, device, num_t=EGO_T):
+    """The ground truth of timestep t of `num_t` seen by `cams`: the image
+    and the depth (un-premultiplied where alpha > 0.5, else 0)."""
     import torch
     from dynamic3dgaussians_tpu_torch.data.synthetic import animate
     from dynamic3dgaussians_tpu_torch.ops.rasterize import (RasterConfig,
                                                             render)
-    means = torch.as_tensor(animate(gt, t, EGO_T), device=device)
+    means = torch.as_tensor(animate(gt, t, num_t), device=device)
     fixed = [torch.as_tensor(gt[k], device=device)
              for k in ("colors", "opac", "scales", "quats")]
     views = []
@@ -2722,6 +2730,492 @@ def phase_ego_main_path(scene, device, smi):
     return rec
 
 
+MOTION_T = 6
+MOTION_BASES = 10
+MOTION_STEPS = 40                 # run 1, the k-means init
+MOTION_TRACK_STEPS = 20           # run 2, the Procrustes init
+MOTION_WINDOW = dict(window_step=3, window=6, iters_per_window=10)
+MOTION_WINDOW_STEPS = 20          # anchors 5 and 2
+MOTION_REPORT_EVERY = 5
+MOTION_TRACKS = 2048
+MOTION_QUERIES = (0, 3)
+MOTION_DEPTH_STRIDE = 8
+MOTION_PSNR_FRAMES = (0, MOTION_T - 1)
+# A basis of the Procrustes init replays noise-free rigid tracks up to the
+# float32 rounding of the SVD and of sums over ~200 tracks at |x| <= 3.5,
+# ~1e-5 world units; 1e-3 leaves that two orders of magnitude and still
+# catches a wrong turn (0.001 rad moves a point 3 units out by 3e-3). The
+# whole foreground moves as one rigid body, so every basis must replay
+# every track: the gate holds the solve, and cannot tell a right cluster
+# assignment from a wrong one.
+PROCRUSTES_TOL = 1e-3
+# the tracker's occlusion flag, stood in for: a track point more than 2 %
+# behind the rendered depth at its pixel (or where nothing opaque is
+# rendered) is occluded
+TRACK_OCC_MARGIN = 1.02
+
+
+@contextlib.contextmanager
+def recording_motion_steps(log, n_pixels):
+    """`motion_trainer.make_motion_step` for the length of the block, its
+    step appending, after a synchronize, the time, frame, loss and PSNR of
+    every step to `log`; yields (a `Throughput` counting the steps' rays
+    and gaussians from the start of the first step, the motion bases the
+    first step was given)."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.train import motion_trainer as TM
+    from dynamic3dgaussians_tpu_torch.utils.logging import Throughput
+    make = TM.make_motion_step
+    tput = Throughput()
+    start = {}
+
+    def wrapped(*a, **k):
+        step = make(*a, **k)
+
+        def rec(params, opt_state, variables, batch, t, lrs):
+            if not log:
+                start.update(rots=params["motion_rots"].clone(),
+                             transls=params["motion_transls"].clone())
+                tput.reset()
+            out = step(params, opt_state, variables, batch, t, lrs)
+            torch.cuda.synchronize()
+            log.append(dict(it=len(log) + 1, time=time.perf_counter(),
+                            t=int(t), loss=float(out[2]["loss"]),
+                            psnr=float(out[2]["psnr"])))
+            tput.update(n_pixels, int(variables["alive"].sum()))
+            return out
+        return rec
+    TM.make_motion_step = wrapped
+    try:
+        yield tput, start
+    finally:
+        TM.make_motion_step = make
+
+
+def motion_render_args(params, variables, t):
+    """Render inputs of the gaussians posed at frame t."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.train.motion_trainer import \
+        posed_gaussians
+    posed = posed_gaussians(params, t)
+    op = torch.sigmoid(params["logit_opacities"][:, 0])
+    return (posed["means3D"], params["rgb_colors"],
+            torch.where(variables["alive"], op, torch.zeros_like(op)),
+            torch.exp(params["log_scales"]), posed["rotations"])
+
+
+def motion_views_psnr(params, variables, dataset, device):
+    """PSNR of the 4 views at the frames MOTION_PSNR_FRAMES, the gaussians
+    posed there and rendered as the motion step renders them (K = 8)."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.ops.rasterize import render
+    from dynamic3dgaussians_tpu_torch.train import losses as L
+    out_psnr = []
+    with torch.no_grad():
+        for t in MOTION_PSNR_FRAMES:
+            args = motion_render_args(params, variables, t)
+            for fr in dataset[t]:
+                out = render(fr["camera"], *args, device=device)
+                out_psnr.append(float(L.psnr(torch.clamp(out.rgb, 0, 1),
+                                             fr["im"])))
+    return out_psnr
+
+
+def lifted_tracks(gt_tracks, cam, depths, tmp):
+    """The tracks of `gt_tracks` (N, T, 3) as a 2D tracker exports them
+    for camera `cam` -- `{query}_{target}.npy` of (N, 4) [x, y, occ, err]
+    for the query frames MOTION_QUERIES, occ from the rendered depth at
+    the track's pixel -- lifted back by `tracks_from_sequence` over the
+    depth renders `depths` (T, H, W). Returns the share of (track, frame)
+    entries it finds visible and their median distance to the truth."""
+    from dynamic3dgaussians_tpu_torch.data.tracks import tracks_from_sequence
+    w2c = cam.w2c.cpu().numpy().astype(np.float64)
+    k = np.array([[F, 0, W / 2], [0, F, H / 2], [0, 0, 1]])
+    names = [str(t) for t in range(MOTION_T)]
+    tdir = os.path.join(tmp, "tracks")
+    os.makedirs(tdir, exist_ok=True)
+    for t in range(MOTION_T):
+        pc = gt_tracks[:, t] @ w2c[:3, :3].T + w2c[:3, 3]
+        z = pc[:, 2]
+        u = k[0, 0] * pc[:, 0] / z + k[0, 2]
+        v = k[1, 1] * pc[:, 1] / z + k[1, 2]
+        # the render's pixel j is centred at the pinhole coordinate j + 0.5
+        col = np.clip(np.round(u - 0.5).astype(int), 0, W - 1)
+        row = np.clip(np.round(v - 0.5).astype(int), 0, H - 1)
+        surf = depths[t][row, col]
+        occ = (surf <= 0) | (z > TRACK_OCC_MARGIN * surf)
+        arr = np.stack([u, v, occ.astype(np.float64), np.zeros_like(u)],
+                       -1).astype(np.float32)
+        for q in MOTION_QUERIES:
+            np.save(os.path.join(tdir, f"{q}_{t}.npy"), arr)
+    c2ws = np.repeat(np.linalg.inv(w2c)[None], MOTION_T, 0).astype(np.float32)
+    t3d, vis, _ = tracks_from_sequence(
+        tdir, names, depths, k.astype(np.float32), c2ws,
+        query_stride=MOTION_QUERIES[1] - MOTION_QUERIES[0])
+    truth = np.concatenate([gt_tracks] * len(MOTION_QUERIES))
+    err = np.linalg.norm(t3d - truth, axis=-1)
+    return dict(n=int(t3d.shape[0]), visible_share=float(vis.mean()),
+                median_err=float(np.median(err[vis])) if vis.any() else None,
+                occluded_share=float(1.0 - vis.mean()))
+
+
+def procrustes_init_timed(gt_tracks, cfg, device, timers):
+    """The Procrustes init on the tracks `gt_tracks` as `init_motion_state`
+    runs it (a generator seeded with `cfg.seed`, canonical frame 0), timed
+    by `phase_timer`; returns its bases."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.models import motion_bases as MB
+    from dynamic3dgaussians_tpu_torch.utils.logging import phase_timer
+    tr = torch.as_tensor(gt_tracks, device=device)
+    gen = torch.Generator(device=device).manual_seed(cfg.seed)
+    with phase_timer("procrustes", sync=tr, log=timers):
+        bases, _, _ = MB.init_motion_params_with_procrustes(
+            tr, MOTION_BASES, 0, gen)
+        torch.cuda.synchronize()
+    return bases
+
+
+def basis_replay(bases, gt_tracks, device):
+    """Each basis's transforms applied to the tracks' canonical (frame 0)
+    points: the largest distance to the true tracks over the tracks and
+    the frames, per basis."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.device import no_tf32
+    from dynamic3dgaussians_tpu_torch.ops.quat import cont_6d_to_rotmat
+    tr = torch.as_tensor(gt_tracks, device=device)
+    with no_tf32():
+        R = cont_6d_to_rotmat(bases["rots"])                 # (K, F, 3, 3)
+        pred = torch.einsum("kfij,nj->knfi", R, tr[:, 0]) \
+            + bases["transls"][:, None]
+    err = torch.linalg.vector_norm(pred - tr[None], dim=-1)
+    return [float(e) for e in err.amax(dim=(1, 2))]
+
+
+def motion_records(params, variables, t, cam, k):
+    """The record table K1 and K2 see in a motion step at frame t: the
+    gaussians posed there, RGB and the seg channels, opacity gated by
+    `alive` and the projection (as `motion_loss` renders them), with K =
+    `k` emission slots."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.ops.projection import project
+    from dynamic3dgaussians_tpu_torch.ops.sorted_raster import \
+        sorted_records
+    with torch.no_grad():
+        means, rgb, op, scales, rots = motion_render_args(params,
+                                                          variables, t)
+        proj = project(means, scales, rots, cam)
+        op = torch.where(proj.valid, op, torch.zeros_like(op))
+        chans = torch.cat([rgb, params["seg_colors"]], dim=-1)
+        rec_t, starts, counts, _ = sorted_records(
+            H, W, proj, chans, op, max_tiles_per_gaussian=k)
+    kw = dict(num_tiles=starts.shape[0], grid_w=-(-W // TILE), tile_h=TILE,
+              tile_w=TILE, chunk=CHUNK)
+    return rec_t, starts, counts, chans.shape[1], kw
+
+
+def motion_step_vs_plain(params, variables, batch, t, device):
+    """One motion step's loss and gradients (every group, the motion
+    bases included, before the dead-row gate) through the kernels and
+    through their plain versions, on the card: the loss and each group's
+    gradients relative to max(|plain|, 1) and relative to the group's own
+    largest |plain| (most groups' gradients are far below 1), each
+    group's largest |g|, and the largest |g| over the capacity-padding
+    rows."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.train import motion_trainer as TM
+    from dynamic3dgaussians_tpu_torch.train.config import (RasterSettings,
+                                                           TrainConfig)
+    from dynamic3dgaussians_tpu_torch.train.trainer import raster_config
+
+    def run(method):
+        cfg = TrainConfig(raster=RasterSettings(method=method))
+        leaves = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in params.items()}
+        loss, _ = TM.motion_loss(leaves, batch, variables, t, cfg=cfg,
+                                 rcfg=raster_config(cfg))
+        grads = torch.autograd.grad(loss, list(leaves.values()),
+                                    allow_unused=True)
+        return float(loss.detach()), {k: (torch.zeros_like(leaves[k])
+                                          if g is None
+                                 else g) for k, g in zip(leaves, grads)}
+
+    lk, gk = run("cuda")
+    lp, gp = run("torch")
+    dead = ~variables["alive"]
+    rel = {k: float(((gk[k] - gp[k]).abs() / gp[k].abs().clamp(min=1.0))
+                    .max()) for k in gk}
+    # a group the loss does not reach is zero in both: 0 apart
+    rel_group = {k: float((gk[k] - gp[k]).abs().max()
+                          / gp[k].abs().max().clamp(min=1e-30)) for k in gk}
+    pad = {k: float(gk[k][dead].abs().max()) for k in gk
+           if gk[k].shape[:1] == dead.shape and gk[k].dim() >= 1}
+    finite = all(bool(torch.isfinite(g).all()) for g in gk.values())
+    loss_rel = abs(lk - lp) / max(abs(lp), 1.0)
+    ok = finite and loss_rel <= REL_RENDER_GRAD and \
+        max(rel.values()) <= REL_RENDER_GRAD and \
+        max(rel_group.values()) <= REL_RENDER_GRAD
+    return dict(loss=lk, loss_plain=lp, loss_rel_err=loss_rel,
+                grad_rel_err=rel, grad_rel_to_group_max=rel_group,
+                grad_abs_max={k: float(g.abs().max()) for k, g in gp.items()},
+                padding_rows_grad_abs_max=pad, finite=finite,
+                tol=REL_RENDER_GRAD, ok=ok)
+
+
+def flow_vs_plain(params, variables, gt, cam, device):
+    """`render_flow` from frame 0 to 1 of the trained gaussians through the
+    kernels (launches counted) and through their plain versions, and the
+    ground truth's flow (the bench scene's rigid motion, rendered the same
+    way): the alpha-weighted flows apart (the composited channels), the
+    flows apart where alpha > 0.5, and the trained flow's mean error in
+    pixels against the truth where both are covered."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.data.synthetic import animate
+    from dynamic3dgaussians_tpu_torch.ops.rasterize import render
+    from dynamic3dgaussians_tpu_torch.train.flow import render_flow
+    with torch.no_grad():
+        a0 = motion_render_args(params, variables, 0)
+        a1 = motion_render_args(params, variables, 1)
+        zero_launches()
+        flow_k = render_flow(cam, a0[0], a1[0], *a0[1:], device=device)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        flow_p = render_flow(cam, a0[0], a1[0], *a0[1:], method="torch",
+                             device=device)
+        alpha = render(cam, *a0, device=device).alpha
+        fixed = [torch.as_tensor(gt[k], device=device)
+                 for k in ("colors", "opac", "scales", "quats")]
+        g0 = torch.as_tensor(animate(gt, 0, MOTION_T), device=device)
+        g1 = torch.as_tensor(animate(gt, 1, MOTION_T), device=device)
+        flow_gt = render_flow(cam, g0, g1, *fixed, device=device)
+        alpha_gt = render(cam, g0, *fixed, device=device).alpha
+    cov = alpha > 0.5
+    span = 1.0 + float(flow_p[cov].abs().max())
+    err_w = float(((flow_k - flow_p) * alpha[..., None]).abs().max())
+    err_cov = float((flow_k - flow_p)[cov].abs().max())
+    both = cov & (alpha_gt > 0.5)
+    gt_err = torch.linalg.vector_norm(flow_k - flow_gt, dim=-1)[both]
+    tol = ATOL_CHAN * span
+    return dict(launches=launches, covered_share=float(cov.float().mean()),
+                flow_span_px=span - 1.0, err_alpha_weighted=err_w,
+                err_covered=err_cov, tol_alpha_weighted=tol,
+                tol_covered=2 * tol,
+                gt_mean_err_px=float(gt_err.mean()),
+                gt_mean_flow_px=float(torch.linalg.vector_norm(
+                    flow_gt, dim=-1)[both].mean()),
+                finite=bool(torch.isfinite(flow_k).all()),
+                ok=err_w <= tol and err_cov <= 2 * tol)
+
+
+def phase_motion_main_path(scene, device, smi, tmp):
+    """The motion-basis trainer at full width: the bench scene's foreground
+    moving rigidly over a 6-frame layout of the 4 bench cameras at 640x360
+    (`make_dataset`, the orbit of `train_bench`); the init cloud
+    `build_init_cloud("fused")` of the bench cloud and the 4 cameras' K1
+    depth renders at frame 0 (stride 8), cut to 200,000 points (200,704
+    rows); 10 bases. Three runs: `train_motion` from the k-means init (40
+    steps), from the Procrustes init on 2,048 foreground points' true
+    tracks (20 steps), and `train_motion_windowed` (windows of 6 frames
+    every 3, 10 steps each: 20 steps). K1 and K2 must launch once per
+    step. Then `render_flow` from frame 0 to 1 of run 1's gaussians (one
+    K1 launch) against the plain path and the true flow. Also the same
+    tracks as camera 0's 2D tracks for query frames 0 and 3, lifted by
+    `tracks_from_sequence` over camera 0's K1 depth renders, and over
+    depth renders of the tracked points alone (reported).
+    Gates: the launch counts, background rows pinned, the views' PSNR
+    rising over run 1, each basis run 2 starts from replaying the true
+    motion within PROCRUSTES_TOL, K1 and K2 against their plain versions
+    on the trained gaussians' record table at frame 0, a step's loss and
+    gradients and `render_flow` through the kernels against the plain
+    path, and finite parameters."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.data.init_clouds import \
+        build_init_cloud
+    from dynamic3dgaussians_tpu_torch.data.synthetic import (
+        animate, init_point_cloud, make_dataset)
+    from dynamic3dgaussians_tpu_torch.models import motion_bases as MB
+    from dynamic3dgaussians_tpu_torch.ops.rasterize import render
+    from dynamic3dgaussians_tpu_torch.train import motion_trainer as TM
+    from dynamic3dgaussians_tpu_torch.train.config import TrainConfig
+    from dynamic3dgaussians_tpu_torch.train.trainer import raster_config
+    from dynamic3dgaussians_tpu_torch.utils.logging import phase_timer
+
+    t0 = time.perf_counter()
+    gt = bench_gt(scene)
+    dataset, w2c, cams = make_dataset(gt, num_t=MOTION_T,
+                                      num_cams=TRAIN_CAMS, w=W, h=H, f=F,
+                                      radius=TRAIN_RADIUS, device=device)
+    views0 = gt_views(gt, cams, 0, device, num_t=MOTION_T)
+    k_mat = np.array([[F, 0, W / 2], [0, F, H / 2], [0, 0, 1]])
+    depth_frames = dict(
+        depths=[d.cpu().numpy() for _, d in views0],
+        rgbs=[im.cpu().numpy() for im, _ in views0],
+        ks=[k_mat] * TRAIN_CAMS, w2cs=list(w2c),
+        segs=[(fr["seg"][..., 0] > 0.5).float().cpu().numpy()
+              for fr in dataset[0]],
+        stride=MOTION_DEPTH_STRIDE)
+    bench_cloud = init_point_cloud(gt)
+    pt = build_init_cloud("fused", pt_cld=bench_cloud,
+                          depth_frames=depth_frames, max_points=N_GAUSS,
+                          seed=0)
+    n_depth_points = sum(int((d > 1e-6).sum()) for d in [
+        x[::MOTION_DEPTH_STRIDE, ::MOTION_DEPTH_STRIDE]
+        for x in depth_frames["depths"]])
+    fg_idx = np.random.RandomState(0).choice(gt["n_fg"], MOTION_TRACKS,
+                                             replace=False)
+    gt_tracks = np.stack([animate(gt, t, MOTION_T)[fg_idx]
+                          for t in range(MOTION_T)], 1).astype(np.float32)
+    depths0 = np.stack([gt_views(gt, [cams[0]], t, device,
+                                 num_t=MOTION_T)[0][1].cpu().numpy()
+                        for t in range(MOTION_T)])
+    # the same depth renders of the tracked points alone: the lifting's
+    # error where no other splat blends into a track's pixel
+    tracked = {k: v[fg_idx] if isinstance(v, np.ndarray) else v
+               for k, v in gt.items()}
+    tracked["n_fg"] = MOTION_TRACKS
+    depths_own = np.stack([gt_views(tracked, [cams[0]], t, device,
+                                    num_t=MOTION_T)[0][1].cpu().numpy()
+                           for t in range(MOTION_T)])
+    cfg = TrainConfig(report_every=MOTION_REPORT_EVERY, seed=0)
+    setup_s = time.perf_counter() - t0
+
+    timers = {}
+    lifted = lifted_tracks(gt_tracks, cams[0], depths0, tmp)
+    lifted_own = lifted_tracks(gt_tracks, cams[0], depths_own,
+                               os.path.join(tmp, "own"))
+    timed_bases = procrustes_init_timed(gt_tracks, cfg, device, timers)
+    params0, vars0 = TM.init_motion_state(pt, w2c, cfg, MOTION_T,
+                                          MOTION_BASES, device=device)
+    pts = params0["means3D"][:pt.shape[0]]
+    gen = torch.Generator(device=device).manual_seed(0)
+    with phase_timer("kmeans", sync=pts, log=timers):
+        MB.coefs_from_features(pts, MOTION_BASES, gen)
+    with phase_timer("nearest_track_map", sync=pts, log=timers):
+        TM.nearest_rows(pts, torch.as_tensor(gt_tracks[:, 0],
+                                             device=device))
+    psnr_init = motion_views_psnr(params0, vars0, dataset, device)
+
+    runs, starts, finite = [], {}, True
+    for name, fn, kw in (
+            ("kmeans", TM.train_motion, dict(num_iters=MOTION_STEPS)),
+            ("procrustes", TM.train_motion,
+             dict(num_iters=MOTION_TRACK_STEPS, tracks_3d=gt_tracks)),
+            ("windowed", TM.train_motion_windowed, MOTION_WINDOW)):
+        log, reports = [], []
+        zero_launches()
+        with recording_motion_steps(log, W * H) as (tput, start):
+            ts = time.perf_counter()
+            params, variables = fn(
+                dataset, cfg, pt, w2c, num_bases=MOTION_BASES,
+                device=device, callbacks={"on_step": lambda a, i, m:
+                                          reports.append(i)}, **kw)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - ts
+        launches = read_launches()
+        starts[name] = start
+        ms = [x for _, x in step_times(log)]
+        finite &= all(bool(torch.isfinite(v).all()) for v in params.values())
+        runs.append(dict(name=name, steps=len(log), run_s=run_s,
+                         launches=launches, reports=reports,
+                         step_ms_median=float(np.median(ms)),
+                         step_ms_min=float(np.min(ms)),
+                         frames=[r["t"] for r in log],
+                         loss_first=log[0]["loss"], loss_last=log[-1]["loss"],
+                         psnr_first=log[0]["psnr"], psnr_last=log[-1]["psnr"],
+                         **{k: v for k, v in tput.rates().items()}))
+        if name == "kmeans":
+            trained, trained_vars = params, variables
+    psnr_after = motion_views_psnr(trained, trained_vars, dataset, device)
+
+    bg = trained["label"] <= 0.5
+    pinned = all(bool(torch.equal(
+        TM.posed_gaussians(trained, t)["means3D"][bg],
+        trained["means3D"][bg])) for t in MOTION_PSNR_FRAMES)
+    cam = dataset[0][0]["camera"]
+    alive = trained_vars["alive"]
+    with torch.no_grad():
+        args = motion_render_args(trained, trained_vars, 0)
+        out = render(cam, *args, device=device)
+        # the same render without the dead capacity rows: the live rows'
+        # own rect drops, apart from the dead rows' phantom ones
+        live = render(cam, *[a[alive] for a in args], device=device)
+    drops = dict(n_dropped_rect=int(out.n_dropped_rect),
+                 n_dropped_capacity=int(out.n_dropped_capacity),
+                 n_dropped_tile_overflow=int(out.n_dropped_tile_overflow),
+                 n_dropped_rect_live_rows=int(live.n_dropped_rect))
+    # run 2's own initial bases (the one-body motion: every basis, every
+    # track), and whether the timed solve gave the same bases
+    init = starts["procrustes"]
+    replay = basis_replay(init, gt_tracks, device)
+    proc = dict(err_per_basis=replay, tol=PROCRUSTES_TOL,
+                finite=all(bool(torch.isfinite(v).all())
+                           for v in init.values()),
+                timed_solve_bitwise=all(torch.equal(timed_bases[k], init[k])
+                                        for k in init))
+    del timed_bases
+    rec_t, starts_t, counts, n_chan, kw = motion_records(
+        trained, trained_vars, 0, cam,
+        raster_config(cfg).max_tiles_per_gaussian)
+    k1_errs, _ = k1_against_plain(rec_t, starts_t, counts, n_chan, kw)
+    k2_errs, _ = k2_against_plain(rec_t, starts_t, counts, kw, device)
+    table = dict(cv=rec_t.shape[0] - 8, n_pairs=int(counts.sum()),
+                 ne_pad=rec_t.shape[1])
+    del rec_t, starts_t, counts
+    plain = motion_step_vs_plain(trained, trained_vars,
+                                 dataset[MOTION_T - 1][1], MOTION_T - 1,
+                                 device)
+    flow = flow_vs_plain(trained, trained_vars, gt, cam, device)
+    total = {k: sum(r["launches"][k] for r in runs) + flow["launches"][k]
+             for k in runs[0]["launches"]}
+    rec = dict(phase="motion_main_path", card=smi, w=W, h=H,
+               frames=MOTION_T, cameras=TRAIN_CAMS, num_bases=MOTION_BASES,
+               n_gaussians=int(pt.shape[0]),
+               capacity=int(trained_vars["alive"].shape[0]),
+               n_depth_points=n_depth_points, setup_s=setup_s,
+               init_s=timers, runs=runs, launches=total,
+               psnr_views_init=psnr_init, psnr_views_after=psnr_after,
+               psnr_views_mean_init=float(np.mean(psnr_init)),
+               psnr_views_mean_after=float(np.mean(psnr_after)),
+               background_pinned=pinned, drops_trained_render=drops,
+               procrustes=proc, lifted_tracks=lifted,
+               lifted_tracks_own_depth=lifted_own, record_table=table,
+               k1_vs_plain=k1_errs, k2_vs_plain=k2_errs,
+               step_vs_plain=plain, flow=flow, finite=finite,
+               phase_s=time.perf_counter() - t0)
+    emit(rec)
+    for r in runs:
+        want = dict(raster_fwd=r["steps"], raster_bwd=r["steps"],
+                    sol_probe=0)
+        if r["launches"] != want:
+            raise AssertionError(f"{r['name']}: launched {r['launches']} in "
+                                 f"{r['steps']} steps")
+    if [r["steps"] for r in runs] != [MOTION_STEPS, MOTION_TRACK_STEPS,
+                                      MOTION_WINDOW_STEPS]:
+        raise AssertionError(f"steps per run: {runs}")
+    if flow["launches"] != dict(raster_fwd=1, raster_bwd=0, sol_probe=0):
+        raise AssertionError(f"render_flow launched {flow['launches']}")
+    if not pinned:
+        raise AssertionError("posed_gaussians moved background rows")
+    if not rec["psnr_views_mean_after"] > rec["psnr_views_mean_init"]:
+        raise AssertionError(f"the views' PSNR did not rise: {psnr_init} -> "
+                             f"{psnr_after}")
+    if not (max(proc["err_per_basis"]) <= PROCRUSTES_TOL
+            and proc["finite"]):
+        raise AssertionError(f"run 2's Procrustes bases do not replay the "
+                             f"true motion: {proc}")
+    if not (k1_errs["ok"] and k2_errs["ok"]):
+        raise AssertionError(f"K1 or K2 disagrees with its plain version on "
+                             f"the motion step's table: {k1_errs} {k2_errs}")
+    if not plain["ok"]:
+        raise AssertionError(f"a motion step through the kernels disagrees "
+                             f"with the plain path: {plain}")
+    if not (flow["ok"] and flow["finite"]):
+        raise AssertionError(f"render_flow through the kernels disagrees "
+                             f"with the plain path: {flow}")
+    if not finite:
+        raise AssertionError("non-finite trained parameters")
+    return rec
+
+
 def floor_rec(k1, k2, k3, train_launches, smi):
     """ns per walked cell of K1 and K2 at the bench view against K3's
     card-wide floor for the same cell pipeline, and each kernel's gap to
@@ -2795,6 +3289,8 @@ def main() -> int:
         viewer_rec = phase_view_main_path(train_rec, device, smi)
         feature_rec = phase_feature_main_path(scene, device, smi, tmp)
     ego_rec = phase_ego_main_path(scene, device, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        motion_rec = phase_motion_main_path(scene, device, smi, tmp)
     phase_tiled(scene, device, smi)
     phase_knn_approx(scene, device, smi)
     probe_rec = phase_probe_main_path(k3, device, smi)
@@ -2803,13 +3299,14 @@ def main() -> int:
 
     # the kernels' times below are at CV 8 (RGB + 3 seg channels, the
     # bench view), the table of `cli train`; the feature path runs K1 and
-    # K2 at CV 40 (RGB + 32 semantic channels) and the ego path at CV 8,
-    # 5 renders per step
+    # K2 at CV 40 (RGB + 32 semantic channels), the ego path at CV 8, 5
+    # renders per step, and the motion path at CV 8 (its render_flow too:
+    # RGB + 2 displacement channels)
     paths = (("visualize", view_rec), ("train", train_rec),
              ("probe", probe_rec), ("evaluate", eval_rec),
              ("tracking", track_rec), ("playback", pb_rec),
              ("view", viewer_rec), ("feature", feature_rec),
-             ("ego", ego_rec))
+             ("ego", ego_rec), ("motion", motion_rec))
     by_path = {name: {p: r["launches"][name] for p, r in paths}
                for name in ("raster_fwd", "raster_bwd", "sol_probe")}
     wide = k3["stream_compute/card_wide"]

@@ -23,7 +23,14 @@ speed-of-light probe of the tile walk (`tools/bench_sol.py`), and the
 serving path: cached-order playback (`ops/playback.py`, `cli visualize
 --resort-every N`), the live viewer and network GUI (`viz/`, `cli view`),
 the render utilities (`utils/`, `ops/debug.py`) and the plain "tiled"
-render method.
+render method; the 3DGS-style OO stack with the Feature-3DGS trainer and
+the ego + static trainer (`models/gaussian_model.py`, `models/scene.py`,
+`train/feature_trainer.py`, `train/ego_trainer.py`); and the
+Shape-of-Motion path: the motion-basis trainer and its bases
+(`train/motion_trainer.py`, `models/motion_bases.py`), the flow priors
+with `render_flow` (`train/flow.py`), track lifting, init clouds and the
+data tools (`data/`), `compose_scenes`, the logging extras and the CLIP
+helpers.
 """
 
 from dynamic3dgaussians_tpu_torch.ops.camera import (  # noqa: F401

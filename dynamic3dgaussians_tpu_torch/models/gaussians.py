@@ -1,7 +1,6 @@
 """Gaussian scene parameters: capacity-padded tables and activations.
 
-Port of `dynamic3dgaussians_tpu/models/gaussians.py` (all but
-`compose_scenes`). Parameters keep the reference's key names so
+Port of `dynamic3dgaussians_tpu/models/gaussians.py`. Parameters keep the reference's key names so
 checkpoints are interchangeable:
 
     means3D (N,3)  rgb_colors (N,3)  seg_colors (N,3)
@@ -181,3 +180,57 @@ def compact_with_optimizer(params: Params, variables: Variables, opt_state):
     return params, variables, optim.AdamState(
         mu=rows_of(opt_state.mu, take), nu=rows_of(opt_state.nu, take),
         step=opt_state.step), order
+
+
+def compose_scenes(static_params: Params, dynamic_params: Params,
+                   capacity: Optional[int] = None,
+                   device: DeviceLike = None):
+    """A trained static background scene and a dynamic foreground set in
+    one table: the static rows first with `label` 0, then the dynamic rows
+    with `label` 1 (the label that gates what moves and learns).
+
+    Only the per-gaussian keys both sides have are kept. A static table
+    with a leading time axis (a stacked per-timestep checkpoint) gives its
+    timestep 0. The camera tables come from the static side when it has
+    them, else from the dynamic one; `scene_radius` from the static side
+    (default 1). Values may be arrays or tensors. Returns (params,
+    variables) padded to `capacity` (default: the row count rounded up),
+    on `device` (default `cuda`).
+    """
+    dev = resolve_device(device)
+
+    def t(v):
+        return torch.as_tensor(v if isinstance(v, torch.Tensor)
+                               else np.asarray(v)).to(dev)
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    s_means = t(static_params["means3D"])
+    n_s = s_means.shape[-2] if s_means.dim() == 3 else s_means.shape[0]
+    n_d = t(dynamic_params["means3D"]).shape[0]
+    out: Params = {}
+    for k in dict(static_params, **dynamic_params):
+        s, d = static_params.get(k), dynamic_params.get(k)
+        if k not in GAUSSIAN_KEYS or s is None or d is None:
+            continue
+        s = t(s)
+        if s.dim() == 3:
+            s = s[0]
+        out[k] = torch.cat([s, t(d)], dim=0)
+    out["label"] = torch.cat([torch.zeros(n_s, **f32),
+                              torch.ones(n_d, **f32)])
+    for k in CAMERA_KEYS:
+        if k in static_params:
+            out[k] = t(static_params[k])
+        elif k in dynamic_params:
+            out[k] = t(dynamic_params[k])
+    n = n_s + n_d
+    cap = capacity or round_capacity(n)
+    variables = {
+        "alive": torch.arange(cap, device=dev) < n,
+        "scene_radius": t(static_params.get("scene_radius",
+                                            1.0)).to(torch.float32),
+        "means2D_gradient_accum": torch.zeros(cap, **f32),
+        "denom": torch.zeros(cap, **f32),
+        "max_2D_radius": torch.zeros(cap, **f32),
+    }
+    return pad_params(out, cap), variables

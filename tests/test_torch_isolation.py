@@ -73,7 +73,10 @@ def test_port_imports_no_jax():
                 "viz.live_viewer", "viz.network_gui", "utils.timing",
                 "utils.pose_utils", "utils.image_utils", "data.colmap",
                 "data.features", "models.gaussian_model", "models.scene",
-                "train.feature_trainer", "train.ego_trainer"):
+                "train.feature_trainer", "train.ego_trainer",
+                "models.motion_bases", "train.motion_trainer", "train.flow",
+                "data.tracks", "data.init_clouds", "data.tools",
+                "utils.clip_utils"):
         assert f"dynamic3dgaussians_tpu_torch.{mod}" in names
     assert int(count) == len(names)
 
@@ -103,7 +106,9 @@ def _tiny():
                                    "orbit_render_playback",
                                    "checkpoint_source", "network_gui",
                                    "gaussian_model", "feature_decoder",
-                                   "train_ego"])
+                                   "train_ego", "train_motion",
+                                   "train_motion_windowed", "render_flow",
+                                   "compose_scenes"])
 def test_no_device_without_cuda_raises(monkeypatch, tmp_path, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     params, cam = _tiny()
@@ -181,6 +186,24 @@ def test_no_device_without_cuda_raises(monkeypatch, tmp_path, entry):
                                  np.ones((8, 1), np.float32)], axis=1)
             train_ego([[]], [[]], TrainConfig(num_timesteps=1), pt,
                       np.eye(4)[None].repeat(2, 0))
+        elif entry in ("train_motion", "train_motion_windowed"):
+            from dynamic3dgaussians_tpu_torch.train import motion_trainer
+            from dynamic3dgaussians_tpu_torch.train.config import TrainConfig
+            pt = np.concatenate([params["means3D"], params["rgb_colors"],
+                                 np.ones((8, 1), np.float32)], axis=1)
+            getattr(motion_trainer, entry)([[]], TrainConfig(), pt,
+                                           np.eye(4)[None].repeat(2, 0),
+                                           num_bases=2)
+        elif entry == "render_flow":
+            from dynamic3dgaussians_tpu_torch.train.flow import render_flow
+            render_flow(cam, params["means3D"], params["means3D"] + 0.1,
+                        params["rgb_colors"], np.ones(8, np.float32),
+                        np.full((8, 3), 0.05, np.float32),
+                        params["unnorm_rotations"])
+        elif entry == "compose_scenes":
+            from dynamic3dgaussians_tpu_torch.models.gaussians import \
+                compose_scenes
+            compose_scenes(params, params)
         elif entry == "cli_train":
             cli.main(["train", "--synthetic", "--timesteps", "1",
                       "--iters_first", "1", "--output", str(tmp_path)])
