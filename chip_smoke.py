@@ -43,7 +43,13 @@ step; background rows pinned, the views' PSNR rising, each basis the
 Procrustes run starts from replaying the true motion, K1 and K2 against
 their plain versions on a motion step's record table, a step's loss and
 gradients and `render_flow` through the kernels against the plain path,
-2D tracks lifted through K1 depth renders); the plain "tiled"
+2D tracks lifted through K1 depth renders); `parallel/`
+(`parallel_main_path`: camera data-parallel training in both reduce modes
+on the bench training's 4 cameras at 800,768 rows, the tile-stripe render
+of the bench view padded to 640x384 and the depth-slab render, forward
+and gradients, in four gloo ranks sharing the card and in one NCCL rank,
+each rank held against the single-process path and launching K1 and K2);
+the plain "tiled"
 render method against the kernel path (image and gradients) with its drop
 counters at the bench view; the approximate kNN at the scene's ~100k
 foreground points; and the probe's entry point `tools/bench_sol.py` --
@@ -3216,6 +3222,489 @@ def phase_motion_main_path(scene, device, smi, tmp):
     return rec
 
 
+# The parallel path (`parallel/`) at full width, in two runs: four gloo
+# ranks that share the one card (NCCL refuses two ranks on one GPU; gloo
+# moves CUDA tensors through the host) and one NCCL rank, so that the same
+# entry points also go through real NCCL calls. The four-card NCCL run
+# needs a four-card machine.
+PAR_RUNS = (("gloo", 4), ("nccl", 1))
+PAR_STEPS = 10
+PAR_RENDER_REPS = 3
+PAR_TIMEOUT_S = 300.0
+# The gates: the JAX tests' own bounds (tests/test_parallel.py) after one
+# DP step and on the sharded renders at depth_mode "total", where both
+# sides composite in the exact front-to-back order. Adam's first step
+# moves each element by about lr whatever its gradient's scale, so after
+# step 1 Adam's moments are held as well, each group within `moment_rel`
+# of its largest |moment|: a gradient K times too large or too small fails
+# there. After PAR_STEPS steps a parameter may differ by `lr_steps` lr per
+# step (`lr_steps_rot` for unnorm_rotations) plus p_atol, and the loss by
+# 1e-4 relative: with Adam's eps of 1e-15 an element whose summed gradient
+# is at rounding level moves by +-lr on either side, and the two sides sum
+# the cameras' gradients in other orders. Set from the H100 readings in
+# PERF.md: unnorm_rotations 0.71 lr apart after 10 steps, every other
+# group within 1.7e-3 lr.
+PAR_TOL = dict(loss_rtol=1e-5, p_atol=1e-5, p_rtol=1e-4, accum_atol=1e-5,
+               ps_atol=2e-5, moment_rel=1e-4, loss_rtol_last=1e-4,
+               lr_steps=1e-3, lr_steps_rot=0.25,
+               img_atol=2e-4, depth_atol=1e-3, depth_rtol=1e-4,
+               grad_rel=1e-3)
+PAR_MODES = ("dp_pmean", "dp_psum_scatter", "tile_stripes", "depth_slabs")
+PAR_KIND = {"tile_stripes": "tile", "depth_slabs": "depth"}
+PAR_NOTE = ("ranks share one card and time-slice it: these times are not "
+            "a scaling figure")
+
+
+def par_spec(scene, device, tmp):
+    """What every rank needs, as host values: the bench training's 4
+    cameras at 640x360 with their GT images of `bench_gt(scene)` and its
+    init cloud; the bench scene and view for the sharded renders, the view
+    padded to a multiple of 4 tile rows (640x384: 24 rows, 6 per rank);
+    the path of the single-process references."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.data.synthetic import (
+        init_point_cloud, make_dataset)
+    from dynamic3dgaussians_tpu_torch.device import resolve_device
+    gt = bench_gt(scene)
+    with torch.no_grad():
+        ds, _, _ = make_dataset(gt, num_t=1, num_cams=TRAIN_CAMS, w=W, h=H,
+                                f=F, radius=TRAIN_RADIUS, device=device)
+    rows = -(-H // TILE)
+    return dict(
+        device=str(resolve_device(device)), w=W, h=H, f=F, pad_h=-(-rows // 4) * 4 * TILE,
+        steps=PAR_STEPS, reps=PAR_RENDER_REPS, tol=PAR_TOL,
+        frames=[dict(im=fr["im"].cpu().numpy(), seg=fr["seg"].cpu().numpy(),
+                     w2c=fr["camera"].w2c.cpu().numpy(),
+                     cam_id=int(fr["cam_id"])) for fr in ds[0]],
+        pt=init_point_cloud(gt),
+        scene={k: scene[k] for k in ("means", "colors", "opac", "scales",
+                                     "quats")},
+        ref_path=os.path.join(tmp, "parallel_ref.pt"))
+
+
+def par_dp_world(spec, dev):
+    """The DP inputs on `dev`: the 4 datapoints and the default
+    configuration."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.ops.camera import make_camera
+    from dynamic3dgaussians_tpu_torch.train.config import TrainConfig
+    from dynamic3dgaussians_tpu_torch.train.trainer import raster_config
+    w, h, f = spec["w"], spec["h"], spec["f"]
+    k = [[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]]
+    frames = [dict(camera=make_camera(w, h, k, fr["w2c"], device=dev),
+                   im=torch.as_tensor(fr["im"], device=dev),
+                   seg=torch.as_tensor(fr["seg"], device=dev),
+                   cam_id=fr["cam_id"]) for fr in spec["frames"]]
+    cfg = TrainConfig()
+    return frames, cfg, raster_config(cfg)
+
+
+def par_lrs(cfg, params, variables):
+    """The t = 0 learning rates of `train`: means3D's by the scene radius."""
+    import torch
+    radius = float(variables["scene_radius"])
+    return {key: torch.tensor(cfg.lrs.get(key, 0.0) * (
+        radius if key == "means3D" else 1.0),
+        device=variables["scene_radius"].device) for key in params}
+
+
+def par_render_setup(spec, kind, dev):
+    """(camera, scene tensors, rgb and depth cotangents) of a sharded
+    render: the bench view, padded to `pad_h` rows for the tile stripes."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.ops.camera import make_camera
+    w, f = spec["w"], spec["f"]
+    h = spec["pad_h"] if kind == "tile" else spec["h"]
+    w2c = np.eye(4)
+    w2c[2, 3] = 6.0
+    cam = make_camera(w, h, [[f, 0, w / 2], [0, f, spec["h"] / 2],
+                             [0, 0, 1]], w2c, device=dev)
+    args = [torch.as_tensor(spec["scene"][key], device=dev)
+            for key in ("means", "colors", "opac", "scales", "quats")]
+    rng = np.random.RandomState(23)
+    ct = [torch.as_tensor(rng.normal(size=s).astype(np.float32), device=dev)
+          for s in ((h, w, 3), (h, w))]
+    return cam, args, ct
+
+
+def par_loss_grads(fn, args, ct):
+    """fn's image and the gradient of sum(rgb ct_rgb) + sum(depth ct_depth)
+    w.r.t. each of its five inputs."""
+    import torch
+    ts = [a.detach().clone().requires_grad_(True) for a in args]
+    out = fn(*ts)
+    loss = torch.sum(out["rgb"] * ct[0]) + torch.sum(out["depth"] * ct[1])
+    grads = torch.autograd.grad(loss, ts)
+    return {key: out[key].detach() for key in ("rgb", "depth", "alpha")}, \
+        list(grads)
+
+
+def par_reference(spec, device):
+    """The initial DP state and the single-process references on the card,
+    saved for the ranks: `init_params` of the init cloud (200,000 points,
+    capacity 800,768); `make_train_step` on the 4 cameras for PAR_STEPS
+    steps (the loss of each, the parameters and the densification
+    accumulator after the first and the last, Adam's moments after the
+    first); `render` of the bench view
+    (padded for the stripes) with its gradients at depth_mode "total" and
+    "quantized"."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.models import gaussians as G
+    from dynamic3dgaussians_tpu_torch.ops.rasterize import (RasterConfig,
+                                                            render)
+    from dynamic3dgaussians_tpu_torch.train import optim
+    from dynamic3dgaussians_tpu_torch.train.trainer import make_train_step
+    frames, cfg, rcfg = par_dp_world(spec, device)
+    params, variables = G.init_params(
+        spec["pt"], np.stack([fr["w2c"] for fr in spec["frames"]]),
+        device=device)
+    ref = {"losses": [], "init": (
+        {key: v.cpu() for key, v in params.items()},
+        {key: v.cpu() for key, v in variables.items()})}
+    lrs = par_lrs(cfg, params, variables)
+    step = make_train_step(cfg, rcfg)
+    opt = optim.init(params)
+    for i in range(1, spec["steps"] + 1):
+        params, opt, variables, m = step(params, opt, variables, frames, lrs,
+                                         True)
+        ref["losses"].append(float(m["loss"]))
+        if i in (1, spec["steps"]):
+            ref[f"params_{i}"] = {key: v.cpu() for key, v in params.items()}
+            ref[f"accum_{i}"] = variables["means2D_gradient_accum"].cpu()
+        if i == 1:
+            ref["moments_1"] = {f"{m}.{key}": v.cpu() for m in ("mu", "nu")
+                                for key, v in getattr(opt, m).items()}
+    for kind in ("tile", "depth"):
+        cam, args, ct = par_render_setup(spec, kind, device)
+        for mode in ("total", "quantized"):
+            # the stripes emit without the exact cull (as the reference's
+            # tile_shard does): the same pairs as a render without it
+            cfg_r = RasterConfig(depth_mode=mode, exact_cull=kind == "depth")
+
+            def fn(*a):
+                out = render(cam, *a, config=cfg_r, device=device)
+                return {"rgb": out.rgb, "depth": out.depth,
+                        "alpha": out.alpha}
+            img, grads = par_loss_grads(fn, args, ct)
+            ref[kind, mode] = dict(
+                {key: v.cpu() for key, v in img.items()},
+                grads=[g.cpu() for g in grads])
+    torch.save(ref, spec["ref_path"])
+
+
+def par_tables(spec, device):
+    """K1 and K2 against their plain versions on the tables the sharded
+    renders give them: each tile stripe's (stripe-local keys and y, the
+    off-stripe pairs at the sentinel, no exact cull) and each depth slab's
+    (its rows, the padding at zero opacity), at every world size of
+    PAR_RUNS and both depth modes, built by the renders' own
+    `stripe_table` and `slab_inputs`. Returns {kind: {world: [per mode and
+    shard: errors with "ok"]}}."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.ops.projection import project
+    from dynamic3dgaussians_tpu_torch.ops.rasterize import RasterConfig
+    from dynamic3dgaussians_tpu_torch.ops.sorted_raster import (
+        prepare_records, sorted_records)
+    from dynamic3dgaussians_tpu_torch.parallel.gaussian_shard import \
+        slab_inputs
+    from dynamic3dgaussians_tpu_torch.parallel.tile_shard import stripe_table
+    out = {}
+    for kind in ("tile", "depth"):
+        cam, args, _ = par_render_setup(spec, kind, device)
+        for world in sorted({w for _, w in PAR_RUNS}):
+            rows = out.setdefault(kind, {}).setdefault(world, [])
+            for mode in ("total", "quantized"):
+                cfg = RasterConfig(depth_mode=mode)
+                for d in range(world):
+                    with torch.no_grad():
+                        if kind == "tile":
+                            table, key, gid, sp = stripe_table(
+                                cam, cfg, world, d, *args)
+                            rec_t, starts, counts, _ = prepare_records(
+                                key, gid, table, n_chan=sp[0],
+                                num_tiles=sp[1], chunk=sp[5], bits_z=sp[6],
+                                depth_mode=mode)
+                            kw = dict(num_tiles=sp[1], grid_w=sp[2],
+                                      tile_h=sp[3], tile_w=sp[4],
+                                      chunk=sp[5])
+                        else:
+                            m, c, o, sc, q = slab_inputs(cam, world, d,
+                                                         *args)
+                            proj = project(m, sc, q, cam)
+                            o = torch.where(proj.valid, o,
+                                            torch.zeros_like(o))
+                            rec_t, starts, counts, _ = sorted_records(
+                                cam.height, cam.width, proj, c, o,
+                                tile_h=cfg.tile_h, tile_w=cfg.tile_w,
+                                chunk=cfg.chunk,
+                                max_tiles_per_gaussian=(
+                                    cfg.max_tiles_per_gaussian),
+                                fused_key=cfg.fused_key, depth_mode=mode,
+                                exact_cull=cfg.exact_cull,
+                                enum_cap=cfg.emit_enum_cap)
+                            kw = dict(num_tiles=starts.shape[0],
+                                      grid_w=-(-cam.width // cfg.tile_w),
+                                      tile_h=cfg.tile_h, tile_w=cfg.tile_w,
+                                      chunk=cfg.chunk)
+                    e1, _ = k1_against_plain(rec_t, starts, counts, 3, kw)
+                    e2, _ = k2_against_plain(rec_t, starts, counts, kw,
+                                             device)
+                    rows.append(dict(mode=mode, shard=d,
+                                     n_pairs=int(counts.sum()),
+                                     num_tiles=kw["num_tiles"], k1=e1, k2=e2,
+                                     ok=e1["ok"] and e2["ok"]))
+    return out
+
+
+def par_ratio(a, b, atol, rtol=0.0) -> float:
+    """max |a - b| / (atol + rtol |b|): at most 1 within the bound."""
+    return float(((a - b).abs() / (atol + rtol * b.abs())).max())
+
+
+def par_dp(spec, reduce, ref, dev, pmean_snaps=None):
+    """PAR_STEPS steps of `make_dp_train_step` in this rank, held against
+    the single-process reference (and psum_scatter against pmean's
+    parameters of the same rank). Returns (record, parameter snapshots)."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.parallel import camera_dp
+    from dynamic3dgaussians_tpu_torch.train import optim
+    frames, cfg, rcfg = par_dp_world(spec, dev)
+    params, variables = ref["init"]
+    lrs = par_lrs(cfg, params, variables)
+    tol, steps = spec["tol"], spec["steps"]
+    step = camera_dp.make_dp_train_step(cfg, rcfg, reduce=reduce,
+                                        device=dev)
+    opt = optim.init(params)
+    if reduce == "psum_scatter":
+        opt = camera_dp.shard_adam_state(opt)
+    zero_launches()
+    ms, losses, snaps = [], [], {}
+    for i in range(1, steps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, variables, m = step(params, opt, variables, frames, lrs,
+                                         True)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if i in (1, steps):
+            snaps[i] = params
+            if i == 1:
+                accum = variables["means2D_gradient_accum"]
+                psnr_1, dropped_1 = float(m["psnr"]), int(m["n_dropped"])
+                full = camera_dp.gather_adam_state(opt) \
+                    if reduce == "psum_scatter" else opt
+                moments = {f"{m_}.{key}": v for m_ in ("mu", "nu")
+                           for key, v in getattr(full, m_).items()}
+                del full
+    launches = read_launches()
+    rec = dict(launches=launches, ms=ms, ms_median=float(np.median(ms[1:])),
+               losses=losses, psnr_1=psnr_1, n_dropped_1=dropped_1,
+               loss_rel_err_1=abs(losses[0] - ref["losses"][0])
+               / abs(ref["losses"][0]),
+               loss_rel_err_last=abs(losses[-1] - ref["losses"][-1])
+               / abs(ref["losses"][-1]),
+               accum_err_1=float((accum - ref["accum_1"]).abs().max()))
+    # each group's moment apart from the reference's, in units of the
+    # group's largest |moment| (0 apart where both are 0)
+    rec["moments_rel_err_1"] = {key: float(
+        (v - ref["moments_1"][key]).abs().max()
+        / ref["moments_1"][key].abs().max().clamp(min=1e-30))
+        for key, v in moments.items()}
+    last = {key: tol["lr_steps_rot" if key == "unnorm_rotations"
+                     else "lr_steps"] * float(lrs[key]) * steps
+            + tol["p_atol"] for key in params}
+    rec["params_ratio_1"] = {key: par_ratio(
+        snaps[1][key], ref["params_1"][key], tol["p_atol"], tol["p_rtol"])
+        for key in params}
+    rec["params_ratio_last"] = {key: par_ratio(
+        snaps[steps][key], ref[f"params_{steps}"][key], last[key])
+        for key in params}
+    if pmean_snaps is not None:
+        rec["vs_pmean_ratio_1"] = {key: par_ratio(
+            snaps[1][key], pmean_snaps[1][key], tol["ps_atol"],
+            tol["p_rtol"]) for key in params}
+        rec["vs_pmean_ratio_last"] = {key: par_ratio(
+            snaps[steps][key], pmean_snaps[steps][key], last[key])
+            for key in params}
+    return rec, snaps
+
+
+def par_shard(spec, kind, ref, dev):
+    """The tile-stripe or depth-slab render of the bench scene in this
+    rank, forward and gradient, at depth_mode "total" (held against the
+    single-process render) and "quantized" (reported), and its forward
+    time."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.ops.rasterize import RasterConfig
+    from dynamic3dgaussians_tpu_torch.parallel.gaussian_shard import \
+        make_depth_sharded_render
+    from dynamic3dgaussians_tpu_torch.parallel.tile_shard import \
+        make_tile_sharded_render
+    cam, args, ct = par_render_setup(spec, kind, dev)
+    tol = spec["tol"]
+    rec = {}
+    for mode in ("total", "quantized"):
+        cfg = RasterConfig(depth_mode=mode)
+        fn = (make_tile_sharded_render(cam, config=cfg, device=dev)
+              if kind == "tile" else
+              make_depth_sharded_render(cam, config=cfg, device=dev))
+        zero_launches()
+        img, grads = par_loss_grads(fn, args, ct)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        want = ref[kind, mode]
+        r = dict(launches=launches,
+                 rgb_err=float((img["rgb"] - want["rgb"]).abs().max()),
+                 alpha_err=float((img["alpha"] - want["alpha"]).abs().max()),
+                 depth_err=float((img["depth"] - want["depth"]).abs().max()),
+                 depth_ratio=par_ratio(img["depth"], want["depth"],
+                                       tol["depth_atol"], tol["depth_rtol"]),
+                 rgb_psnr=psnr(img["rgb"].clamp(0, 1),
+                               want["rgb"].clamp(0, 1)),
+                 grad_rel_err={key: float((g - gw).abs().max()
+                                          / gw.abs().max().clamp(min=1e-30))
+                               for key, g, gw in zip(
+                                   ("means", "colors", "opac", "scales",
+                                    "quats"), grads, want["grads"])})
+        with torch.no_grad():
+            r["ms"] = host_ms(lambda i=0: fn(*args), spec["reps"])
+        r["ms_median"] = float(np.median(r["ms"]))
+        rec[mode] = r
+    return rec
+
+
+def _parallel_rank(rank, world, spec):
+    """One rank of `parallel_main_path`: camera DP in both reduce modes,
+    the tile stripes and the depth slabs, each against the references."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.parallel import collectives as C
+    clock = {"entry": time.time()}
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    # written by this script's parent process
+    ref = torch.load(spec["ref_path"], map_location=dev, weights_only=False)
+    clock["ref_loaded"] = time.time()
+    out = dict(rank=rank, collectives=C.implementation(), clock=clock)
+    out["dp_pmean"], snaps = par_dp(spec, "pmean", ref, dev)
+    clock["dp_pmean"] = time.time()
+    out["dp_psum_scatter"], _ = par_dp(spec, "psum_scatter", ref, dev,
+                                       pmean_snaps=snaps)
+    clock["dp_psum_scatter"] = time.time()
+    out["tile_stripes"] = par_shard(spec, "tile", ref, dev)
+    clock["tile_stripes"] = time.time()
+    out["depth_slabs"] = par_shard(spec, "depth", ref, dev)
+    clock["depth_slabs"] = time.time()
+    return out
+
+
+def par_failures(mode, r, spec, world):
+    """The gates one rank's record of `mode` fails in a run of `world`
+    ranks. K1 and K2 launch exactly once per camera and step in DP, and
+    once per sharded render and gradient."""
+    tol, steps, bad = spec["tol"], spec["steps"], []
+    if mode.startswith("dp_"):
+        need = steps * len(spec["frames"]) // world
+        checks = [("loss_rel_err_1", r["loss_rel_err_1"] <= tol["loss_rtol"]),
+                  ("moments_rel_err_1", max(r["moments_rel_err_1"].values())
+                   <= tol["moment_rel"]),
+                  ("loss_rel_err_last",
+                   r["loss_rel_err_last"] <= tol["loss_rtol_last"]),
+                  ("accum_err_1", r["accum_err_1"] <= tol["accum_atol"]),
+                  ("losses_finite", bool(np.isfinite(r["losses"]).all()))]
+        for key in ("params_ratio_1", "params_ratio_last",
+                    "vs_pmean_ratio_1", "vs_pmean_ratio_last"):
+            if key in r:
+                checks.append((key, max(r[key].values()) <= 1.0))
+        launches = [r["launches"]]
+    else:
+        need = 1
+        t = r["total"]
+        checks = [("rgb_err", t["rgb_err"] <= tol["img_atol"]),
+                  ("alpha_err", t["alpha_err"] <= tol["img_atol"]),
+                  ("depth_ratio", t["depth_ratio"] <= 1.0),
+                  ("grad_rel_err",
+                   max(t["grad_rel_err"].values()) <= tol["grad_rel"])]
+        launches = [r["total"]["launches"], r["quantized"]["launches"]]
+    for la in launches:
+        checks.append(("launches", la["raster_fwd"] == need
+                       and la["raster_bwd"] == need))
+    bad += [name for name, ok in checks if not ok]
+    return bad
+
+
+def phase_parallel_main_path(scene, device, smi):
+    """`parallel/` at full width: `make_dp_train_step` on the bench
+    training's 4 cameras at 640x360 (200,000 points, capacity 800,768, one
+    camera per gloo rank, K = 8, t = 0), PAR_STEPS steps in each reduce
+    mode; `make_tile_sharded_render` on the bench view padded to 640x384;
+    `make_depth_sharded_render` on the bench view (50,000 gaussians per
+    gloo rank); each forward and with the gradient of a fixed
+    random-cotangent loss, at depth_mode "total" and "quantized". Runs in
+    PAR_RUNS (four gloo ranks on the one card, one NCCL rank). Every rank
+    is held against the single-process path on the card (`par_reference`)
+    and gated by PAR_TOL; K1 and K2 must launch in every rank, in every
+    mode. One line per mode and run."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.parallel import mesh
+    totals = {"raster_fwd": 0, "raster_bwd": 0, "sol_probe": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = par_spec(scene, device, tmp)
+        t0 = time.perf_counter()
+        par_reference(spec, device)
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tables = par_tables(spec, device)
+        tables_s = time.perf_counter() - t0
+        failures, recs = [], []
+        torch.cuda.empty_cache()
+        for backend, world in PAR_RUNS:
+            t0, wall0 = time.perf_counter(), time.time()
+            ranks = mesh.spawn(_parallel_rank, world, backend,
+                               timeout_s=PAR_TIMEOUT_S, args=(spec,))
+            run_s = time.perf_counter() - t0
+            # seconds from the spawn to each rank's milestones
+            clocks = [{key: t - wall0 for key, t in r["clock"].items()}
+                      for r in ranks]
+            for mode in PAR_MODES:
+                per = [r[mode] for r in ranks]
+                bad = {r["rank"]: par_failures(mode, r[mode], spec, world)
+                       for r in ranks}
+                bad = {k: v for k, v in bad.items() if v}
+                extra = {}
+                if not mode.startswith("dp_"):
+                    # K1 and K2 on this mode's own tables, in the parent
+                    rows = tables[PAR_KIND[mode]][world]
+                    extra = dict(kernels_vs_plain=rows,
+                                 kernels_vs_plain_s=tables_s)
+                    if not all(t["ok"] for t in rows):
+                        bad["tables"] = [(t["mode"], t["shard"])
+                                         for t in rows if not t["ok"]]
+                rec = dict(phase="parallel_main_path", mode=mode,
+                           backend=backend, world=world,
+                           collectives=ranks[0]["collectives"],
+                           ranks=per, run_s=run_s, reference_s=ref_s,
+                           rank_clock_s=clocks,
+                           steps=spec["steps"] if mode.startswith("dp_")
+                           else None, tol=PAR_TOL, note=PAR_NOTE,
+                           failures=bad, card=smi, **extra)
+                emit(rec)
+                recs.append(rec)
+                if bad:
+                    failures.append((backend, world, mode, bad))
+                for r in per:
+                    for la in ([r["launches"]] if mode.startswith("dp_")
+                               else [r["total"]["launches"],
+                                     r["quantized"]["launches"]]):
+                        for key in totals:
+                            totals[key] += la[key]
+    if failures:
+        raise AssertionError(f"parallel_main_path failed: {failures}")
+    return dict(launches=totals, records=recs)
+
+
 def floor_rec(k1, k2, k3, train_launches, smi):
     """ns per walked cell of K1 and K2 at the bench view against K3's
     card-wide floor for the same cell pipeline, and each kernel's gap to
@@ -3291,6 +3780,7 @@ def main() -> int:
     ego_rec = phase_ego_main_path(scene, device, smi)
     with tempfile.TemporaryDirectory() as tmp:
         motion_rec = phase_motion_main_path(scene, device, smi, tmp)
+    par_rec = phase_parallel_main_path(scene, device, smi)
     phase_tiled(scene, device, smi)
     phase_knn_approx(scene, device, smi)
     probe_rec = phase_probe_main_path(k3, device, smi)
@@ -3306,7 +3796,8 @@ def main() -> int:
              ("probe", probe_rec), ("evaluate", eval_rec),
              ("tracking", track_rec), ("playback", pb_rec),
              ("view", viewer_rec), ("feature", feature_rec),
-             ("ego", ego_rec), ("motion", motion_rec))
+             ("ego", ego_rec), ("motion", motion_rec),
+             ("parallel", par_rec))
     by_path = {name: {p: r["launches"][name] for p, r in paths}
                for name in ("raster_fwd", "raster_bwd", "sol_probe")}
     wide = k3["stream_compute/card_wide"]

@@ -141,6 +141,53 @@ def compute_loss(params: Dict, probe: torch.Tensor, batch: Dict,
     return total, aux
 
 
+def loss_and_grads(params: Dict, variables: Dict, batch, *,
+                   is_initial: bool, cfg: TrainConfig, rcfg: RasterConfig):
+    """`compute_loss` over one datapoint, or over a list of them (the mean
+    loss, the largest radii, the mean PSNR and the summed drop counts),
+    and its gradients w.r.t. the parameters and the mean2d probe. Returns
+    (loss, aux, grads by key, probe gradient), a group that the loss does
+    not reach getting zeros."""
+    keys = list(params)
+    leaves = {k: params[k].detach().requires_grad_(True) for k in keys}
+    alive = variables["alive"]
+    probe = torch.zeros((alive.shape[0], 2), dtype=torch.float32,
+                        device=alive.device, requires_grad=True)
+    kw = dict(is_initial=is_initial, cfg=cfg, rcfg=rcfg)
+    if isinstance(batch, dict):
+        loss, aux = compute_loss(leaves, probe, batch, variables, **kw)
+    else:
+        parts = [compute_loss(leaves, probe, b, variables, **kw)
+                 for b in batch]
+        auxs = [a for _, a in parts]
+        aux = {"losses": {k: torch.stack([a["losses"][k] for a in auxs])
+                          .mean() for k in auxs[0]["losses"]},
+               "radii": torch.stack([a["radii"] for a in auxs]).amax(0),
+               "psnr": torch.stack([a["psnr"] for a in auxs]).mean(),
+               "n_dropped": sum(a["n_dropped"] for a in auxs),
+               "n_dropped_rect": sum(a["n_dropped_rect"] for a in auxs)}
+        loss = torch.stack([p for p, _ in parts]).mean()
+    grads = torch.autograd.grad(loss, [leaves[k] for k in keys] + [probe],
+                                allow_unused=True)
+    gp = {k: torch.zeros_like(params[k]) if g is None else g
+          for k, g in zip(keys, grads[:-1])}
+    gprobe = torch.zeros_like(probe) if grads[-1] is None else grads[-1]
+    return loss.detach(), aux, gp, gprobe
+
+
+def mask_dead_rows(grads: Dict, alive: torch.Tensor) -> Dict:
+    """Zero the gradient rows of dead capacity slots in every per-gaussian
+    group, so they never drift (their gradients can be NaN, e.g.
+    normalising a zero quaternion); `alive` covers the groups' rows."""
+    out = {}
+    for k, g in grads.items():
+        if k not in G.CAMERA_KEYS:
+            m = alive.reshape((-1,) + (1,) * (g.dim() - 1))
+            g = torch.where(m, g, torch.zeros_like(g))
+        out[k] = g
+    return out
+
+
 def make_train_step(cfg: TrainConfig, rcfg: RasterConfig):
     """The train step: gradients of the loss w.r.t. the parameters and the
     mean2d probe, the dead-row gradient mask, Adam, the densification
@@ -151,47 +198,18 @@ def make_train_step(cfg: TrainConfig, rcfg: RasterConfig):
     list of them (cams_per_step > 1: mean loss, largest radii).
     """
 
-    def batched_loss(params, probe, batch, variables, is_initial):
-        kw = dict(is_initial=is_initial, cfg=cfg, rcfg=rcfg)
-        if isinstance(batch, dict):
-            return compute_loss(params, probe, batch, variables, **kw)
-        parts = [compute_loss(params, probe, b, variables, **kw)
-                 for b in batch]
-        auxs = [a for _, a in parts]
-        aux = {"losses": {k: torch.stack([a["losses"][k] for a in auxs])
-                          .mean() for k in auxs[0]["losses"]},
-               "radii": torch.stack([a["radii"] for a in auxs]).amax(0),
-               "psnr": torch.stack([a["psnr"] for a in auxs]).mean(),
-               "n_dropped": sum(a["n_dropped"] for a in auxs),
-               "n_dropped_rect": sum(a["n_dropped_rect"] for a in auxs)}
-        return torch.stack([p for p, _ in parts]).mean(), aux
-
     def train_step(params, opt_state, variables, batch, lrs, is_initial):
-        keys = list(params)
-        leaves = {k: params[k].detach().requires_grad_(True) for k in keys}
-        alive = variables["alive"]
-        probe = torch.zeros((alive.shape[0], 2), dtype=torch.float32,
-                            device=alive.device, requires_grad=True)
-        loss, aux = batched_loss(leaves, probe, batch, variables, is_initial)
-        grads = torch.autograd.grad(loss, [leaves[k] for k in keys] + [probe],
-                                    allow_unused=True)
+        loss, aux, gp, gprobe = loss_and_grads(
+            params, variables, batch, is_initial=is_initial, cfg=cfg,
+            rcfg=rcfg)
         with torch.no_grad():
-            gp = {}
-            for k, g in zip(keys, grads[:-1]):
-                g = torch.zeros_like(params[k]) if g is None else g
-                if k not in G.CAMERA_KEYS:
-                    # dead capacity slots must not drift (their gradients
-                    # can be NaN, e.g. normalising a zero quaternion)
-                    m = alive.reshape((-1,) + (1,) * (g.dim() - 1))
-                    g = torch.where(m, g, torch.zeros_like(g))
-                gp[k] = g
-            gprobe = grads[-1] if grads[-1] is not None else \
-                torch.zeros_like(probe)
+            gp = mask_dead_rows(gp, variables["alive"])
             new_params, new_opt = optim.step(
-                {k: params[k].detach() for k in keys}, gp, opt_state, lrs)
+                {k: v.detach() for k, v in params.items()}, gp, opt_state,
+                lrs)
             new_vars = densify_mod.accumulate_stats(variables, gprobe,
                                                     aux["radii"])
-            metrics = {"loss": loss.detach(), "psnr": aux["psnr"].detach(),
+            metrics = {"loss": loss, "psnr": aux["psnr"].detach(),
                        "n_dropped": aux["n_dropped"],
                        "n_dropped_rect": aux["n_dropped_rect"],
                        **{f"loss_{k}": v.detach()

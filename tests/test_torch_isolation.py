@@ -76,7 +76,9 @@ def test_port_imports_no_jax():
                 "train.feature_trainer", "train.ego_trainer",
                 "models.motion_bases", "train.motion_trainer", "train.flow",
                 "data.tracks", "data.init_clouds", "data.tools",
-                "utils.clip_utils"):
+                "utils.clip_utils", "parallel.mesh", "parallel.collectives",
+                "parallel.camera_dp", "parallel.tile_shard",
+                "parallel.gaussian_shard"):
         assert f"dynamic3dgaussians_tpu_torch.{mod}" in names
     assert int(count) == len(names)
 
@@ -108,7 +110,9 @@ def _tiny():
                                    "gaussian_model", "feature_decoder",
                                    "train_ego", "train_motion",
                                    "train_motion_windowed", "render_flow",
-                                   "compose_scenes"])
+                                   "compose_scenes", "make_dp_train_step",
+                                   "make_tile_sharded_render",
+                                   "make_depth_sharded_render"])
 def test_no_device_without_cuda_raises(monkeypatch, tmp_path, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     params, cam = _tiny()
@@ -204,6 +208,18 @@ def test_no_device_without_cuda_raises(monkeypatch, tmp_path, entry):
             from dynamic3dgaussians_tpu_torch.models.gaussians import \
                 compose_scenes
             compose_scenes(params, params)
+        elif entry == "make_dp_train_step":
+            from dynamic3dgaussians_tpu_torch.parallel.camera_dp import \
+                make_dp_train_step
+            from dynamic3dgaussians_tpu_torch.train.config import TrainConfig
+            make_dp_train_step(TrainConfig(), trast.RasterConfig())
+        elif entry in ("make_tile_sharded_render",
+                       "make_depth_sharded_render"):
+            from dynamic3dgaussians_tpu_torch.parallel import (gaussian_shard,
+                                                               tile_shard)
+            mod = tile_shard if entry.startswith("make_tile") else \
+                gaussian_shard
+            getattr(mod, entry)(cam)
         elif entry == "cli_train":
             cli.main(["train", "--synthetic", "--timesteps", "1",
                       "--iters_first", "1", "--output", str(tmp_path)])
