@@ -3705,6 +3705,306 @@ def phase_parallel_main_path(scene, device, smi):
     return dict(launches=totals, records=recs)
 
 
+# The long-run tools (`dynamic3dgaussians_tpu_torch/tools/`) at their full
+# widths, the depth cut: dynamic_run over 3 timesteps of 300 + 60 + 60
+# steps (of the reference run's 50 timesteps of 1,000 + 200), scale_run
+# 300 of 3,000 steps, roundtrip_demo 200 + 60 + 60 of 400 + 120 + 120.
+LR_DYNAMIC = dict(n=50_000, hw=256, cams=8, k_cap=8, timesteps=3,
+                  iters0=300, iters=60)
+LR_TRACK = dict(queries=256, knn=8)
+LR_SCALE = dict(n=30_000, hw=400, cams=6, k_cap=16, iters=300,
+                densify_every=100, min_gain_db=2.0)
+LR_ROUNDTRIP = dict(iters=200, iters_later=60)
+# an untrained model scores ~12 dB on these views (the tools' PSNR at step
+# 0); the reference's recorded round trip, 400 + 120 + 120 steps, 17.55 dB
+# (artifacts/roundtrip_demo.json)
+LR_ROUNDTRIP_PSNR_MIN = 15.0
+
+
+def _flags(d):
+    return [x for k, v in d.items() for x in (f"--{k}", str(v))]
+
+
+def train_records(params, variables, cam, k):
+    """The record table K1 and K2 see in a training step at `cam`: the
+    activated gaussians (opacity gated by `alive` and the projection), RGB
+    and the seg channels, with K = `k` emission slots."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.models import gaussians as G
+    from dynamic3dgaussians_tpu_torch.ops.projection import project
+    from dynamic3dgaussians_tpu_torch.ops.sorted_raster import \
+        sorted_records
+    with torch.no_grad():
+        act = G.activated(params, variables["alive"])
+        proj = project(act["means3d"], act["scales"], act["rotations"], cam)
+        op = torch.where(proj.valid, act["opacity"],
+                         torch.zeros_like(act["opacity"]))
+        chans = torch.cat([act["colors"], params["seg_colors"]], dim=-1)
+        rec_t, starts, counts, _ = sorted_records(
+            cam.height, cam.width, proj, chans, op,
+            max_tiles_per_gaussian=k)
+    kw = dict(num_tiles=starts.shape[0],
+              grid_w=-(-cam.width // TILE), tile_h=TILE, tile_w=TILE,
+              chunk=CHUNK)
+    return rec_t, starts, counts, chans.shape[1], kw
+
+
+def longrun_dynamic(device, tmp):
+    """`dynamic_run.run` on the card with the smoke's callbacks: each
+    step's ms (after a synchronize) and K, each K escalation, and at the
+    end of each timestep the rect drops of camera 0 rendered from all rows
+    and from the alive rows (`rect_drop_split`, 2 K1 launches), and the
+    t = 1 state for the kernels' comparison."""
+    import dataclasses
+
+    import torch
+    from dynamic3dgaussians_tpu_torch.ops.camera import orbit_cameras
+    from dynamic3dgaussians_tpu_torch.tools import dynamic_run
+
+    d = LR_DYNAMIC
+    args = dynamic_run.parse_args(_flags(d) + [
+        "--device", str(device), "--out", os.path.join(tmp, "dynamic.json"),
+        "--save_params", os.path.join(tmp, "dynamic_params.npz")])
+    cfg0 = dynamic_run.build_config(args)
+    cam0 = orbit_cameras((0.0, 0.0, 0.0), 4.0, -1.0, d["cams"], d["hw"],
+                         d["hw"], d["hw"] * 0.9, device=device)[0]
+    st = dict(k=d["k_cap"], last=None, steps=[], grow=[], splits=[],
+              t1=None)
+
+    def on_iter(t, i, k):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        if st["last"] is not None:
+            st["steps"].append((t, k, (now - st["last"]) * 1e3))
+        st["last"] = now
+
+    def on_grow_tiles(t, i, new_k):
+        st["k"] = new_k
+        st["grow"].append(dict(t=t, i=i, k=new_k))
+
+    def on_timestep(t, params, variables):
+        cfg = dataclasses.replace(cfg0, raster=dataclasses.replace(
+            cfg0.raster, max_tiles_per_gaussian=st["k"]))
+        st["splits"].append(dict(t=t, **dynamic_run.rect_drop_split(
+            params, variables, {"camera": cam0}, cfg)))
+        if t == 1:
+            st["t1"] = ({k: v.detach().clone() for k, v in params.items()},
+                        {k: v.clone() for k, v in variables.items()},
+                        st["k"])
+        st["last"] = None            # the first step of a timestep: untimed
+
+    zero_launches()
+    t0 = time.perf_counter()
+    log = dynamic_run.run(args, callbacks=dict(
+        on_iter=on_iter, on_grow_tiles=on_grow_tiles,
+        on_timestep=on_timestep))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = read_launches()
+    by = {}
+    for t, k, ms in st["steps"]:
+        by.setdefault(f"{'t0' if t == 0 else 'later'}_k{k}", []).append(ms)
+    step_ms = {key: dict(n=len(v), median=float(np.median(v)),
+                         min=float(np.min(v))) for key, v in by.items()}
+    params, variables, k1 = st["t1"]
+    rec_t, starts, counts, n_chan, kw = train_records(params, variables,
+                                                      cam0, k1)
+    k1_errs, _ = k1_against_plain(rec_t, starts, counts, n_chan, kw)
+    k2_errs, _ = k2_against_plain(rec_t, starts, counts, kw, device)
+    table = dict(t=1, k=k1, cv=rec_t.shape[0] - 8, n_pairs=int(counts.sum()),
+                 ne_pad=rec_t.shape[1])
+    n_steps = d["iters0"] + (d["timesteps"] - 1) * d["iters"]
+    # K1: the dataset's renders (one per timestep and camera), one per
+    # step, two per timestep's split; K2: one per step
+    want = dict(raster_fwd=d["timesteps"] * d["cams"] + n_steps
+                + 2 * d["timesteps"], raster_bwd=n_steps, sol_probe=0)
+    return dict(args=vars(args), log=log, run_s=run_s, launches=launches,
+                launches_want=want, step_ms=step_ms, grow_tiles=st["grow"],
+                rect_split=st["splits"], record_table=table,
+                k1_vs_plain=k1_errs, k2_vs_plain=k2_errs)
+
+
+def longrun_tracking(params_npz, device, tmp):
+    """`tracking_eval.run` on dynamic_run's stacked npz, the PCK@0.05 of
+    tracks that stay at their t = 0 position through the same rig, and
+    how visible the foreground's motion is in the training views (those
+    renders come after the tool's launches are read)."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.data import synthetic
+    from dynamic3dgaussians_tpu_torch.eval.metrics import pck
+    from dynamic3dgaussians_tpu_torch.eval.tracking import project_tracks
+    from dynamic3dgaussians_tpu_torch.ops.camera import orbit_cameras
+    from dynamic3dgaussians_tpu_torch.tools import tracking_eval
+
+    d = LR_DYNAMIC
+    argv = ["--params", params_npz, "--n", str(d["n"]), "--timesteps",
+            str(d["timesteps"]), "--cams", str(d["cams"]), "--hw",
+            str(d["hw"]), "--device", str(device),
+            "--out", os.path.join(tmp, "tracking.json")] + _flags(LR_TRACK)
+    zero_launches()
+    t0 = time.perf_counter()
+    res = tracking_eval.main(argv)
+    run_s = time.perf_counter() - t0
+    launches = read_launches()
+    # the tool's queries, held still
+    scene = synthetic.make_gt_scene(n_fg=d["n"] // 2, n_bg=d["n"] // 2,
+                                    seed=0)
+    qi = np.random.RandomState(123).choice(scene["n_fg"],
+                                           LR_TRACK["queries"],
+                                           replace=False)
+    q = scene["means"][qi].astype(np.float32)
+    T = d["timesteps"]
+    gt = np.stack([q @ synthetic.rigid_motion(t, T)[0].T
+                   + synthetic.rigid_motion(t, T)[1] for t in range(T)])
+    still = np.broadcast_to(q, gt.shape)
+    cams = orbit_cameras((0.0, 0.0, 0.0), 4.0, -1.0, d["cams"], d["hw"],
+                         d["hw"], d["hw"] * 0.9, device=device)
+    pck_still = float(np.mean([float(pck(
+        project_tracks(torch.as_tensor(np.ascontiguousarray(still),
+                                       device=device), c),
+        project_tracks(torch.as_tensor(gt, device=device), c),
+        (d["hw"], d["hw"]), ratio=0.05)) for c in cams]))
+    # how much of the foreground the views show: its pixel share at t = 0
+    # (seg) and the share of pixels that change by more than one 8-bit
+    # level from the first to the last timestep, per camera
+    from dynamic3dgaussians_tpu_torch.tools import dynamic_run
+    data, _, _ = dynamic_run.build_data(
+        dynamic_run.parse_args(_flags(d)), device)
+    fg_share = [float((f["seg"][..., 0] > 0.5).float().mean())
+                for f in data[0]]
+    moved_share = [float(((a["im"] - b["im"]).abs().amax(-1) > 1 / 255)
+                         .float().mean()) for a, b in zip(data[0], data[-1])]
+    del data
+    return dict(result=res, run_s=run_s, launches=launches,
+                pck_still=pck_still, fg_pixel_share=fg_share,
+                moved_pixel_share=moved_share)
+
+
+def longrun_scale(device, tmp):
+    """`scale_run.run` on the card; its own --min_gain_db exit is a gate."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.tools import scale_run
+    d = LR_SCALE
+    args = scale_run.parse_args(_flags(d) + [
+        "--device", str(device), "--out", os.path.join(tmp, "scale.json")])
+    zero_launches()
+    t0 = time.perf_counter()
+    log = scale_run.run(args)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = read_launches()
+    n_reports = len(log["psnr"])
+    # K1: the dataset's renders, one per step, two per report's split
+    want = dict(raster_fwd=d["cams"] + d["iters"] + 2 * n_reports,
+                raster_bwd=d["iters"], sol_probe=0)
+    return dict(args=vars(args), log=log, run_s=run_s, launches=launches,
+                launches_want=want)
+
+
+def longrun_roundtrip(device, tmp):
+    """`roundtrip_demo.run` at its default size, fewer steps."""
+    from dynamic3dgaussians_tpu_torch.tools import roundtrip_demo
+    args = roundtrip_demo.parse_args(_flags(LR_ROUNDTRIP) + [
+        "--device", str(device), "--out", os.path.join(tmp, "rt"),
+        "--artifact", os.path.join(tmp, "roundtrip.json")])
+    zero_launches()
+    t0 = time.perf_counter()
+    summary = roundtrip_demo.run(args)
+    run_s = time.perf_counter() - t0
+    launches = read_launches()
+    T, cams = args.timesteps, args.cams
+    n_steps = args.iters + (T - 1) * args.iters_later
+    # K1: the layout's renders, one per step and a panel per timestep in
+    # cli train, 24 orbit frames, one per view in cli evaluate (at most 4
+    # cameras of each timestep)
+    want = dict(raster_fwd=T * cams + n_steps + T + 24 + T * min(cams, 4),
+                raster_bwd=n_steps, sol_probe=0)
+    return dict(args=vars(args), summary=summary, run_s=run_s,
+                launches=launches, launches_want=want)
+
+
+def phase_longrun_main_path(device, smi):
+    """The long-run tools on the card at full width, through their
+    `run()`: `dynamic_run` (50,000 gaussians, 256x256, 8 cameras, K from
+    8; 3 timesteps of 300 + 60 + 60 steps, the stacked npz saved),
+    `tracking_eval` on that npz (256 queries, 8 neighbours), `scale_run`
+    (30,000 gaussians, 400x400, 6 cameras, K from 16, 300 steps, densify
+    every 100) and `roundtrip_demo` (128x96, 6 cameras, 3 timesteps,
+    200 + 60 + 60 steps). Each tool's launches are counted alone, with
+    the counts set to 0 just before it. Gates: K1 and K2 launch exactly as
+    counted (one K2 per step; one K1 per step, per dataset render and per
+    extra render); dynamic_run's PSNR rises over t = 0 and is finite at
+    every t, and K1 and K2 agree with their plain versions on the record
+    table of its t = 1 state; every tracking metric finite, PCK@0.05 above
+    that of tracks held at their t = 0 position; scale_run's own
+    --min_gain_db exit, at least one densify event, capacity never below
+    alive; the round trip's stacked params.npz (the tool's own check) and
+    its `cli evaluate` PSNR above LR_ROUNDTRIP_PSNR_MIN."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        dyn = longrun_dynamic(device, tmp)
+        track = longrun_tracking(dyn["log"]["params_npz"], device, tmp)
+        scale = longrun_scale(device, tmp)
+        rt = longrun_roundtrip(device, tmp)
+    log, slog = dyn["log"], scale["log"]
+    per_t = log["per_timestep"]
+    for g in scale["log"]["grow_tiles"]:
+        print(f"scale_run grow_tiles: {json.dumps(g)}", flush=True)
+    for s in dyn["rect_split"]:
+        print(f"dynamic_run t={s['t']} ended at K={s['k']}: rect drops "
+              f"{s['all_rows']} ({s['live_rows']} live rows, "
+              f"{s['all_rows'] - s['live_rows']} dead rows)", flush=True)
+    rec = dict(phase="longrun_main_path", card=smi,
+               dynamic=dict({k: v for k, v in dyn.items() if k != "log"},
+                            per_timestep=per_t,
+                            psnr_first=log["steps"][0]["psnr"],
+                            final_alive=log["final_alive"],
+                            t_data_s=log["t_data_s"],
+                            t_total_s=log["t_total_s"]),
+               tracking=track,
+               scale=dict({k: v for k, v in scale.items() if k != "log"},
+                          **{k: slog[k] for k in (
+                              "psnr", "densify", "grow_tiles", "n_dropped",
+                              "n_dropped_rect", "rect_split", "t_data_s",
+                              "t_train_s", "it_per_s", "psnr_gain_db",
+                              "final_alive", "final_capacity")}),
+               roundtrip=rt, phase_s=time.perf_counter() - t0)
+    emit(rec)
+    launches = {k: dyn["launches"][k] + track["launches"][k]
+                + scale["launches"][k] + rt["launches"][k]
+                for k in dyn["launches"]}
+    res = track["result"]
+    metrics = [v for k, v in res.items()
+               if k.startswith(("pck", "px_", "err3d", "ate", "rpe"))]
+    caps = [(e["alive"], e["capacity"]) for e in slog["densify"]] + [
+        (slog["final_alive"], slog["final_capacity"])]
+    checks = {
+        "dynamic launches": dyn["launches"] == dyn["launches_want"],
+        "dynamic psnr rises over t = 0":
+            per_t[0]["final_psnr"] > log["steps"][0]["psnr"],
+        "dynamic psnr finite": all(
+            p["final_psnr"] is not None and np.isfinite(p["final_psnr"])
+            for p in per_t) and len(per_t) == LR_DYNAMIC["timesteps"],
+        "dynamic K1 vs plain": dyn["k1_vs_plain"]["ok"],
+        "dynamic K2 vs plain": dyn["k2_vs_plain"]["ok"],
+        "tracking launches": track["launches"] == dict(
+            raster_fwd=0, raster_bwd=0, sol_probe=0),
+        "tracking finite": all(np.isfinite(m) for m in metrics),
+        "tracking beats still tracks":
+            res["pck_0.05"] > track["pck_still"],
+        "scale launches": scale["launches"] == scale["launches_want"],
+        "scale densified": len(slog["densify"]) >= 1,
+        "scale capacity >= alive": all(a <= c for a, c in caps),
+        "roundtrip launches": rt["launches"] == rt["launches_want"],
+        "roundtrip psnr": np.isfinite(rt["summary"]["eval"]["mean_psnr"])
+        and rt["summary"]["eval"]["mean_psnr"] > LR_ROUNDTRIP_PSNR_MIN,
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"longrun_main_path failed: {bad}")
+    return dict(launches=launches, record=rec)
+
+
 def floor_rec(k1, k2, k3, train_launches, smi):
     """ns per walked cell of K1 and K2 at the bench view against K3's
     card-wide floor for the same cell pipeline, and each kernel's gap to
@@ -3781,6 +4081,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         motion_rec = phase_motion_main_path(scene, device, smi, tmp)
     par_rec = phase_parallel_main_path(scene, device, smi)
+    longrun_rec = phase_longrun_main_path(device, smi)
     phase_tiled(scene, device, smi)
     phase_knn_approx(scene, device, smi)
     probe_rec = phase_probe_main_path(k3, device, smi)
@@ -3797,7 +4098,7 @@ def main() -> int:
              ("tracking", track_rec), ("playback", pb_rec),
              ("view", viewer_rec), ("feature", feature_rec),
              ("ego", ego_rec), ("motion", motion_rec),
-             ("parallel", par_rec))
+             ("parallel", par_rec), ("longrun", longrun_rec))
     by_path = {name: {p: r["launches"][name] for p, r in paths}
                for name in ("raster_fwd", "raster_bwd", "sol_probe")}
     wide = k3["stream_compute/card_wide"]

@@ -45,15 +45,22 @@ def make_gt_scene(n_fg: int = 120, n_bg: int = 300, seed: int = 0):
                 quats=quats, seg=seg, n_fg=n_fg)
 
 
-def animate(scene: Dict, t: int, num_t: int) -> np.ndarray:
-    """Rigid foreground motion: translate and rotate about y over time."""
-    means = scene["means"].copy()
-    n_fg = scene["n_fg"]
+def rigid_motion(t: int, num_t: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The foreground's motion at t of num_t as (R, shift): a t = 0 point
+    x moves to x @ R.T + shift (a turn about y and a translation)."""
     frac = t / max(num_t - 1, 1)
     ang = 0.6 * frac
     c, s = np.cos(ang), np.sin(ang)
     R = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
     shift = np.array([0.35 * frac, -0.15 * frac, 0.0], np.float32)
+    return R, shift
+
+
+def animate(scene: Dict, t: int, num_t: int) -> np.ndarray:
+    """Rigid foreground motion: translate and rotate about y over time."""
+    means = scene["means"].copy()
+    n_fg = scene["n_fg"]
+    R, shift = rigid_motion(t, num_t)
     means[:n_fg] = scene["means"][:n_fg] @ R.T + shift
     return means
 

@@ -62,7 +62,8 @@ def round_capacity(n: int, multiple: int = 1024) -> int:
 
 
 def init_params(pt_cld: np.ndarray, w2c_stack: np.ndarray, *,
-                max_cams: int = 5, capacity: Optional[int] = None,
+                max_cams: Optional[int] = None,
+                capacity: Optional[int] = None,
                 semantic_dim: int = 0, seed: int = 0,
                 generator: Optional[torch.Generator] = None,
                 device: DeviceLike = None):
@@ -72,11 +73,18 @@ def init_params(pt_cld: np.ndarray, w2c_stack: np.ndarray, *,
     root of the mean squared distance to the 3 nearest neighbours, the
     scene radius from the spread of the cameras `w2c_stack` (C, 4, 4), and
     every per-gaussian table padded to `capacity` (default 4 N, rounded).
+    The colour-correction tables `cam_m` / `cam_c` have `max_cams` rows,
+    by default one per camera of `w2c_stack` and at least 5. (The
+    reference fixes 5 and clamps a camera id past them onto the last row,
+    so cameras 4 and up share one correction; here an id past an explicit
+    `max_cams` raises.)
     `semantic_feature` (semantic_dim > 0) is 0.01 * N(0, 1), drawn from
     `generator` (default: a generator seeded with `seed`). Runs on `device`
     (default `cuda`).
     """
     dev = resolve_device(device)
+    if max_cams is None:
+        max_cams = max(5, len(w2c_stack))
     n = pt_cld.shape[0]
     cap = capacity or round_capacity(int(n * 4))
     f32 = dict(dtype=torch.float32, device=dev)

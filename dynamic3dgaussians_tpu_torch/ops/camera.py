@@ -107,3 +107,18 @@ def orbit_cameras(center, radius: float, height: float, n: int, w: int,
         k = np.array([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]], np.float64)
         cams.append(make_camera(w, h, k, w2c, near, far, device=device))
     return cams
+
+
+def stack_cameras(cams) -> Camera:
+    """One Camera whose tensor fields carry a leading batch axis, stacked
+    field by field; the cameras must share one image size, and the static
+    fields (height, width, near, far) are the first camera's."""
+    first = cams[0]
+    if not all((c.width, c.height) == (first.width, first.height)
+               for c in cams):
+        # the reference's assertion, raised under -O too
+        raise AssertionError("stack_cameras: mixed image sizes")
+    stacked = {f.name: torch.stack([getattr(c, f.name) for c in cams])
+               for f in dataclasses.fields(Camera)
+               if f.name not in ("height", "width", "near", "far")}
+    return dataclasses.replace(first, **stacked)

@@ -79,6 +79,23 @@ def _cov3d_components(scales, rotations, scale_modifier=1.0):
     )
 
 
+def build_cov3d(scales: torch.Tensor, rotations: torch.Tensor,
+                scale_modifier: float = 1.0) -> torch.Tensor:
+    """3D covariance R diag(s)^2 R^T of (N, 3) activated scales and (N, 4)
+    unit wxyz quaternions, packed (N, 6) [xx, xy, xz, yy, yz, zz]: the
+    components `project` uses, stacked."""
+    return torch.stack(_cov3d_components(scales, rotations, scale_modifier),
+                       dim=-1)
+
+
+def unpack_sym3(packed: torch.Tensor) -> torch.Tensor:
+    """(..., 6) [xx, xy, xz, yy, yz, zz] -> (..., 3, 3) symmetric."""
+    xx, xy, xz, yy, yz, zz = packed.unbind(-1)
+    return torch.stack([torch.stack([xx, xy, xz], dim=-1),
+                        torch.stack([xy, yy, yz], dim=-1),
+                        torch.stack([xz, yz, zz], dim=-1)], dim=-2)
+
+
 def _ewa_cov2d(mx, my, mz, cov6, cam: Camera):
     """EWA 2D covariance (cxx, cxy, cyy) with the +0.3 low-pass."""
     V = cam.w2c

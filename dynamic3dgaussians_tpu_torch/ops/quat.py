@@ -1,8 +1,8 @@
 """Quaternion helpers, (w, x, y, z) on the last axis.
 
-Port of `dynamic3dgaussians_tpu/ops/quat.py`: the render path's helpers
-and the rotation forms of the motion bases (6D continuous <-> matrix,
-matrix -> quaternion).
+Port of `dynamic3dgaussians_tpu/ops/quat.py`: the render path's helpers,
+`rotate`, and the rotation forms of the motion bases (6D continuous <->
+matrix, matrix -> quaternion).
 """
 
 from __future__ import annotations
@@ -46,6 +46,14 @@ def quat_to_rotmat(q: torch.Tensor, normalized: bool = False) -> torch.Tensor:
     row2 = torch.stack([2 * (x * z - r * y), 2 * (y * z + r * x),
                         1 - 2 * (x * x + y * y)], dim=-1)
     return torch.stack([row0, row1, row2], dim=-2)
+
+
+def rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate (..., 3) vectors by (..., 4) wxyz quaternions, through
+    `quat_to_rotmat` (which normalises q). The product is elementwise, so
+    it is float32 on the card whatever the TF32 setting."""
+    R = quat_to_rotmat(q)
+    return torch.sum(R * v[..., None, :], dim=-1)
 
 
 def _unit(v: torch.Tensor) -> torch.Tensor:

@@ -21,6 +21,11 @@ def rgb_to_sh(rgb):
     return (rgb - 0.5) / C0
 
 
+def sh_to_rgb(sh):
+    """DC SH coefficient -> RGB (the inverse of `rgb_to_sh`)."""
+    return sh * C0 + 0.5
+
+
 def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
     """Raw SH value (no +0.5 offset) of (..., K, 3) coefficients along
     (..., 3) unit directions, K >= (deg + 1)^2."""

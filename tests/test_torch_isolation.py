@@ -78,7 +78,9 @@ def test_port_imports_no_jax():
                 "data.tracks", "data.init_clouds", "data.tools",
                 "utils.clip_utils", "parallel.mesh", "parallel.collectives",
                 "parallel.camera_dp", "parallel.tile_shard",
-                "parallel.gaussian_shard"):
+                "parallel.gaussian_shard", "tools.dynamic_run",
+                "tools.tracking_eval", "tools.scale_run",
+                "tools.roundtrip_demo"):
         assert f"dynamic3dgaussians_tpu_torch.{mod}" in names
     assert int(count) == len(names)
 
@@ -112,7 +114,9 @@ def _tiny():
                                    "train_motion_windowed", "render_flow",
                                    "compose_scenes", "make_dp_train_step",
                                    "make_tile_sharded_render",
-                                   "make_depth_sharded_render"])
+                                   "make_depth_sharded_render",
+                                   "tool_dynamic_run", "tool_tracking_eval",
+                                   "tool_scale_run", "tool_roundtrip_demo"])
 def test_no_device_without_cuda_raises(monkeypatch, tmp_path, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     params, cam = _tiny()
@@ -220,6 +224,23 @@ def test_no_device_without_cuda_raises(monkeypatch, tmp_path, entry):
             mod = tile_shard if entry.startswith("make_tile") else \
                 gaussian_shard
             getattr(mod, entry)(cam)
+        elif entry.startswith("tool_"):
+            import importlib
+            tool = importlib.import_module(
+                f"dynamic3dgaussians_tpu_torch.tools.{entry[5:]}")
+            out = str(tmp_path / "out.json")
+            tool.main({"tool_dynamic_run": ["--n", "8", "--timesteps", "1",
+                                            "--iters0", "1", "--hw", "32",
+                                            "--out", out],
+                       "tool_tracking_eval": ["--params",
+                                              texp.save_params(
+                                                  [params], str(tmp_path)),
+                                              "--timesteps", "1",
+                                              "--out", out],
+                       "tool_scale_run": ["--n", "8", "--iters", "1",
+                                          "--hw", "32", "--out", out],
+                       "tool_roundtrip_demo": ["--out", str(tmp_path),
+                                               "--artifact", out]}[entry])
         elif entry == "cli_train":
             cli.main(["train", "--synthetic", "--timesteps", "1",
                       "--iters_first", "1", "--output", str(tmp_path)])
@@ -289,3 +310,20 @@ def test_native_builds_its_own_library_and_leaves_native_alone(tmp_path):
     assert lib.startswith(str(root / "build" / "native") + os.sep)
     assert os.path.exists(lib)
     assert snapshot() == before
+
+
+@pytest.mark.parametrize("tool", ["dynamic_run", "tracking_eval",
+                                  "scale_run", "roundtrip_demo"])
+def test_tool_default_outputs_are_new_files(tool):
+    """The long-run tools' default logs never overwrite a file of the
+    reference's tools: artifacts/torch_<tool>_<device type>.json, for the
+    card and the CPU alike."""
+    from dynamic3dgaussians_tpu_torch.tools.dynamic_run import default_out
+    art = os.path.join(REPO, "artifacts")
+    reference = {f for f in os.listdir(art) if not f.startswith("torch_")}
+    assert {"dynamic_run_cpu.json", "scale_run_cpu.json",
+            "roundtrip_demo.json"} <= reference
+    for dev in ("cuda", "cpu"):
+        path = default_out(tool, torch.device(dev))
+        assert path == os.path.join(art, f"torch_{tool}_{dev}.json")
+        assert os.path.basename(path) not in reference
