@@ -52,11 +52,17 @@ each rank held against the single-process path and launching K1 and K2);
 the plain "tiled"
 render method against the kernel path (image and gradients) with its drop
 counters at the bench view; the approximate kNN at the scene's ~100k
-foreground points; and the probe's entry point `tools/bench_sol.py` --
-and checks that each went through its kernels. Prints one JSON object
-per phase; the last line is `{"ok": true, "device": {...}}`. Any failure
-propagates and exits non-zero, as does a machine without CUDA. Imports
-nothing of JAX.
+foreground points; the probe's entry point `tools/bench_sol.py`; and
+the multi-step training window (`window_main_path`: 10 steps of the bench
+training as one `make_train_scan` window, a CUDA graph of the step
+replayed, at t = 0 and at t > 0 with K = 64, bitwise the eager steps; and
+`dynamic_run --steps_per_call 25` through `train()`'s window loop, bitwise
+its unwindowed run) -- and checks that each went through its kernels: K1
+and K2 count their runs on the device too, so that the runs replayed from
+a CUDA graph, which the host does not launch, are counted. Prints one
+JSON object per phase; the last line is `{"ok": true, "device": {...}}`.
+Any failure propagates and exits non-zero, as does a machine without
+CUDA. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -132,7 +138,9 @@ def emit(obj):
 
 def launch_counts():
     """The kernels' wrappers K1, K2, K3; each adds one to its `launches`
-    where it launches its kernel, and nowhere else."""
+    where it launches its kernel, and nowhere else. K1 and K2 also count
+    each run of their kernel on the device, CUDA graph replays included
+    (`ops/cuda/launches.py`, `read_runs`)."""
     from dynamic3dgaussians_tpu_torch.ops.cuda.raster_bwd import \
         composite_tiles_bwd
     from dynamic3dgaussians_tpu_torch.ops.cuda.raster_fwd import \
@@ -142,14 +150,26 @@ def launch_counts():
 
 
 def zero_launches():
-    for fn in launch_counts():
-        fn.launches = 0
+    from dynamic3dgaussians_tpu_torch.ops.cuda import launches
+    fwd, bwd, sol = launch_counts()
+    launches.zero(fwd)
+    launches.zero(bwd)
+    sol.launches = 0
 
 
 def read_launches():
     fwd, bwd, sol = launch_counts()
     return {"raster_fwd": fwd.launches, "raster_bwd": bwd.launches,
             "sol_probe": sol.launches}
+
+
+def read_runs():
+    """K1's and K2's runs counted by the kernels on the device since
+    `zero_launches` (a device sync)."""
+    from dynamic3dgaussians_tpu_torch.ops.cuda import launches
+    fwd, bwd, _ = launch_counts()
+    return {"raster_fwd": launches.runs(fwd),
+            "raster_bwd": launches.runs(bwd)}
 
 
 def bench_scene(seed=0, n=N_GAUSS, scales=(0.004, 0.015), opac=(0.5, 0.99)):
@@ -3715,6 +3735,8 @@ LR_TRACK = dict(queries=256, knn=8)
 LR_SCALE = dict(n=30_000, hw=400, cams=6, k_cap=16, iters=300,
                 densify_every=100, min_gain_db=2.0)
 LR_ROUNDTRIP = dict(iters=200, iters_later=60)
+# the reference's r5 run's window (artifacts/dynamic_run_tpu_r5.json)
+LR_WINDOW = 25
 # an untrained model scores ~12 dB on these views (the tools' PSNR at step
 # 0); the reference's recorded round trip, 400 + 120 + 120 steps, 17.55 dB
 # (artifacts/roundtrip_demo.json)
@@ -3824,6 +3846,51 @@ def longrun_dynamic(device, tmp):
                 k1_vs_plain=k1_errs, k2_vs_plain=k2_errs)
 
 
+def longrun_dynamic_window(dyn, device, tmp):
+    """`dynamic_run.run` once more at the reference's --steps_per_call
+    LR_WINDOW (no callbacks): `train()`'s window loop on the card, its
+    windows cut at report steps, K escalations (8 -> 16 -> 32 -> 64 at
+    t = 0, one StepWindow kept across them) and the t = 0 -> t > 0
+    recapture. Held bitwise against the steps_per_call 1 run `dyn`: the
+    saved parameters of every timestep, each report's PSNR and loss and
+    each timestep's alive count and final PSNR. K1 and K2 run once per step
+    (and K1 once per dataset render), counted by the kernels on the device;
+    the wrappers' host counts stay below that (replays launch nothing from
+    the host)."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.tools import dynamic_run
+
+    d = dict(LR_DYNAMIC, steps_per_call=LR_WINDOW)
+    args = dynamic_run.parse_args(_flags(d) + [
+        "--device", str(device), "--out",
+        os.path.join(tmp, "dynamic_w.json"),
+        "--save_params", os.path.join(tmp, "dynamic_w_params.npz")])
+    zero_launches()
+    t0 = time.perf_counter()
+    log = dynamic_run.run(args)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches, runs = read_launches(), read_runs()
+    ref = dyn["log"]
+    a, b = np.load(ref["params_npz"]), np.load(log["params_npz"])
+    not_bitwise = sorted(set(a.files) ^ set(b.files)) + [
+        k for k in sorted(set(a.files) & set(b.files))
+        if not np.array_equal(a[k], b[k])]
+
+    def per_t(lg):
+        return [(p["t"], p["n_alive"], p["final_psnr"])
+                for p in lg["per_timestep"]]
+    n_steps = d["iters0"] + (d["timesteps"] - 1) * d["iters"]
+    want_runs = dict(raster_fwd=d["timesteps"] * d["cams"] + n_steps,
+                     raster_bwd=n_steps)
+    return dict(args=vars(args), run_s=run_s, launches=launches, runs=runs,
+                runs_want=want_runs,
+                params_not_bitwise=not_bitwise,
+                reports_equal=log["steps"] == ref["steps"],
+                per_timestep_equal=per_t(log) == per_t(ref),
+                per_timestep=log["per_timestep"])
+
+
 def longrun_tracking(params_npz, device, tmp):
     """`tracking_eval.run` on dynamic_run's stacked npz, the PCK@0.05 of
     tracks that stay at their t = 0 position through the same rig, and
@@ -3926,23 +3993,28 @@ def longrun_roundtrip(device, tmp):
 def phase_longrun_main_path(device, smi):
     """The long-run tools on the card at full width, through their
     `run()`: `dynamic_run` (50,000 gaussians, 256x256, 8 cameras, K from
-    8; 3 timesteps of 300 + 60 + 60 steps, the stacked npz saved),
-    `tracking_eval` on that npz (256 queries, 8 neighbours), `scale_run`
-    (30,000 gaussians, 400x400, 6 cameras, K from 16, 300 steps, densify
-    every 100) and `roundtrip_demo` (128x96, 6 cameras, 3 timesteps,
-    200 + 60 + 60 steps). Each tool's launches are counted alone, with
+    8; 3 timesteps of 300 + 60 + 60 steps, the stacked npz saved), the
+    same `dynamic_run` at --steps_per_call LR_WINDOW
+    (`longrun_dynamic_window`), `tracking_eval` on that npz (256
+    queries, 8 neighbours), `scale_run` (30,000 gaussians, 400x400, 6
+    cameras, K from 16, 300 steps, densify every 100) and
+    `roundtrip_demo` (128x96, 6 cameras, 3 timesteps, 200 + 60 + 60
+    steps). Each tool's launches are counted alone, with
     the counts set to 0 just before it. Gates: K1 and K2 launch exactly as
     counted (one K2 per step; one K1 per step, per dataset render and per
     extra render); dynamic_run's PSNR rises over t = 0 and is finite at
     every t, and K1 and K2 agree with their plain versions on the record
-    table of its t = 1 state; every tracking metric finite, PCK@0.05 above
-    that of tracks held at their t = 0 position; scale_run's own
-    --min_gain_db exit, at least one densify event, capacity never below
-    alive; the round trip's stacked params.npz (the tool's own check) and
-    its `cli evaluate` PSNR above LR_ROUNDTRIP_PSNR_MIN."""
+    table of its t = 1 state; the windowed run bitwise the unwindowed one,
+    K1 and K2 run once per step in it (device counts); every tracking
+    metric finite, PCK@0.05 above that of tracks held at their t = 0
+    position; scale_run's own --min_gain_db exit, at least one densify
+    event, capacity never below alive; the round trip's stacked
+    params.npz (the tool's own check) and its `cli evaluate` PSNR above
+    LR_ROUNDTRIP_PSNR_MIN."""
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         dyn = longrun_dynamic(device, tmp)
+        dyn_w = longrun_dynamic_window(dyn, device, tmp)
         track = longrun_tracking(dyn["log"]["params_npz"], device, tmp)
         scale = longrun_scale(device, tmp)
         rt = longrun_roundtrip(device, tmp)
@@ -3950,6 +4022,12 @@ def phase_longrun_main_path(device, smi):
     per_t = log["per_timestep"]
     for g in scale["log"]["grow_tiles"]:
         print(f"scale_run grow_tiles: {json.dumps(g)}", flush=True)
+    print(f"dynamic_run --steps_per_call {LR_WINDOW}: "
+          f"{dyn_w['run_s']:.1f} s (steps_per_call 1, with per-step "
+          f"syncs: {dyn['run_s']:.1f} s), "
+          f"K1/K2 runs {dyn_w['runs']} (host launches "
+          f"{dyn_w['launches']}), params not bitwise: "
+          f"{dyn_w['params_not_bitwise']}", flush=True)
     for s in dyn["rect_split"]:
         print(f"dynamic_run t={s['t']} ended at K={s['k']}: rect drops "
               f"{s['all_rows']} ({s['live_rows']} live rows, "
@@ -3961,7 +4039,7 @@ def phase_longrun_main_path(device, smi):
                             final_alive=log["final_alive"],
                             t_data_s=log["t_data_s"],
                             t_total_s=log["t_total_s"]),
-               tracking=track,
+               dynamic_window=dyn_w, tracking=track,
                scale=dict({k: v for k, v in scale.items() if k != "log"},
                           **{k: slog[k] for k in (
                               "psnr", "densify", "grow_tiles", "n_dropped",
@@ -3970,9 +4048,9 @@ def phase_longrun_main_path(device, smi):
                               "final_alive", "final_capacity")}),
                roundtrip=rt, phase_s=time.perf_counter() - t0)
     emit(rec)
-    launches = {k: dyn["launches"][k] + track["launches"][k]
-                + scale["launches"][k] + rt["launches"][k]
-                for k in dyn["launches"]}
+    launches = {k: dyn["launches"][k] + dyn_w["launches"][k]
+                + track["launches"][k] + scale["launches"][k]
+                + rt["launches"][k] for k in dyn["launches"]}
     res = track["result"]
     metrics = [v for k, v in res.items()
                if k.startswith(("pck", "px_", "err3d", "ate", "rpe"))]
@@ -3987,6 +4065,13 @@ def phase_longrun_main_path(device, smi):
             for p in per_t) and len(per_t) == LR_DYNAMIC["timesteps"],
         "dynamic K1 vs plain": dyn["k1_vs_plain"]["ok"],
         "dynamic K2 vs plain": dyn["k2_vs_plain"]["ok"],
+        "window run params bitwise": not dyn_w["params_not_bitwise"],
+        "window run reports equal": dyn_w["reports_equal"],
+        "window run per-timestep equal": dyn_w["per_timestep_equal"],
+        "window run K1/K2 runs": dyn_w["runs"] == dyn_w["runs_want"],
+        "window run replayed": all(
+            0 < dyn_w["launches"][k] < dyn_w["runs"][k]
+            for k in ("raster_fwd", "raster_bwd")),
         "tracking launches": track["launches"] == dict(
             raster_fwd=0, raster_bwd=0, sol_probe=0),
         "tracking finite": all(np.isfinite(m) for m in metrics),
@@ -4002,7 +4087,329 @@ def phase_longrun_main_path(device, smi):
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         raise AssertionError(f"longrun_main_path failed: {bad}")
-    return dict(launches=launches, record=rec)
+    return dict(launches=launches, runs=dyn_w["runs"], record=rec)
+
+
+WIN_STEPS = 10
+WIN_PROFILE_STEPS = 3
+# (name, K emission slots): t = 0 at the default K, t > 0 at K = 64 (where
+# every `cli train` run's K escalation ends) with the physics terms
+WIN_POINTS = (("t0", 8), ("later", 64))
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaMemcpy", "cudaMemcpyAsync", "cudaEventSynchronize")
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+                "cuLaunchKernelEx", "cudaGraphLaunch")
+
+
+def profile_calls(fn, n_calls, n_steps=1):
+    """torch.profiler summary of n_calls calls of fn (each `n_steps` train
+    steps): the device's busy and idle share of the traced span, host
+    launches (kernels and graph launches) and synchronising calls per step,
+    and the kernels that take most device time. The idle share is None
+    when the trace holds no device event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy_us, end = 0.0, -1.0
+    for s, e in spans:                  # union of the device intervals
+        if e > end:
+            busy_us += e - max(s, end)
+            end = e
+    window_us = (spans[-1][1] - spans[0][0]) if spans else 0.0
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (
+            e.time_range.end - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    host = [e.name for e in events if e.device_type != DeviceType.CUDA]
+    per = n_calls * n_steps
+    return dict(
+        calls=n_calls, steps_per_call=n_steps,
+        wall_ms_per_call=wall_ms / n_calls,
+        device_events=len(kernels),
+        device_busy_ms_per_call=busy_us / 1e3 / n_calls,
+        device_window_ms_per_call=window_us / 1e3 / n_calls,
+        device_idle_share=(1.0 - busy_us / window_us) if window_us else None,
+        kernels_per_call=sum(host.count(n) for n in LAUNCH_CALLS) / n_calls,
+        launches_per_step=sum(host.count(n) for n in LAUNCH_CALLS) / per,
+        graph_launches_per_step=host.count("cudaGraphLaunch") / per,
+        syncs_per_call=sum(host.count(n) for n in SYNC_CALLS) / n_calls,
+        top_kernels_ms_per_call=[
+            [name[:90], t / 1e3 / n_calls] for name, t in top])
+
+
+def win_lrs(cfg, params, variables, frozen):
+    """`train`'s learning rates: means3D's by the scene radius, the groups
+    of `freeze_after_t0` at 0 after t = 0."""
+    import torch
+    radius = float(variables["scene_radius"])
+    return {k: torch.tensor(0.0 if frozen and k in cfg.freeze_after_t0 else
+                            cfg.lrs.get(k, 0.0) * (radius if k == "means3D"
+                                                   else 1.0),
+                            device=variables["scene_radius"].device)
+            for k in params}
+
+
+def win_diff(a, b):
+    """The state entries (parameters, Adam's moments and step, variables)
+    that are not bitwise equal between two (params, opt, vars) states."""
+    import torch
+    (pa, oa, va), (pb, ob, vb) = a, b
+    pairs = [(f"params.{k}", pa[k], pb[k]) for k in pa]
+    pairs += [(f"{m}.{k}", getattr(oa, m)[k], getattr(ob, m)[k])
+              for m in ("mu", "nu") for k in oa.mu]
+    pairs += [("opt.step", oa.step, ob.step)]
+    pairs += [(f"vars.{k}", va[k], vb[k]) for k in va
+              if isinstance(va[k], torch.Tensor)]
+    return [name for name, x, y in pairs if not torch.equal(x, y)]
+
+
+def win_tables(params, variables, cam, k, pair_cap):
+    """The record table of one step's render at `cam` (RGB + seg, K = `k`)
+    in both forms: eager (`prepare_records`) and at the window's pair
+    capacity (`prepare_records_static`); the kernels' keyword arguments."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.models import gaussians as G
+    from dynamic3dgaussians_tpu_torch.ops import sorted_raster as SR
+    from dynamic3dgaussians_tpu_torch.ops.projection import project
+    with torch.no_grad():
+        act = G.activated(params, variables["alive"])
+        proj = project(act["means3d"], act["scales"], act["rotations"], cam)
+        op = torch.where(proj.valid, act["opacity"],
+                         torch.zeros_like(act["opacity"]))
+        chans = torch.cat([act["colors"], params["seg_colors"]], dim=-1)
+        tile_key, gid, _ = SR.emit(cam.height, cam.width, proj, op,
+                                   tile_h=TILE, tile_w=TILE,
+                                   max_tiles_per_gaussian=k, exact_cull=True,
+                                   enum_cap=0)
+        table = SR.record_columns(proj, chans, op)
+        grid_w = -(-cam.width // TILE)
+        num_tiles = -(-cam.height // TILE) * grid_w
+        kw = dict(n_chan=chans.shape[1], num_tiles=num_tiles, chunk=CHUNK,
+                  bits_z=SR.depth_key_bits(num_tiles),
+                  depth_mode="quantized")
+        eager = SR.prepare_records(tile_key, gid, table, **kw)
+        static = SR.prepare_records_static(tile_key, gid, table,
+                                           pair_cap=pair_cap, **kw)
+    return eager, static, chans.shape[1], dict(
+        num_tiles=num_tiles, grid_w=grid_w, tile_h=TILE, tile_w=TILE,
+        chunk=CHUNK)
+
+
+def win_point(name, k, state, frames, device, smi):
+    """One point of `window_main_path`: WIN_STEPS eager steps and the same
+    steps as one window, from `state`. Returns (record, the window's end
+    state)."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.train import trainer as T
+    from dynamic3dgaussians_tpu_torch.train.config import (RasterSettings,
+                                                           TrainConfig)
+    is_initial = name == "t0"
+    cfg = TrainConfig(num_timesteps=1 if is_initial else 2,
+                      raster=RasterSettings(max_tiles_per_gaussian=k))
+    rcfg = T.raster_config(cfg)
+    step = T.make_train_step(cfg, rcfg)
+    params, opt, variables = state
+    lrs = win_lrs(cfg, params, variables, frozen=not is_initial)
+    sel = np.random.RandomState(11).randint(0, len(frames), WIN_STEPS)
+    stack = T.stack_timestep_data(frames)
+
+    def eager(n_steps=WIN_STEPS):
+        p, o, v = params, opt, variables
+        ms = []
+        for c in sel[:n_steps]:
+            p, o, v, m = step(p, o, v, frames[int(c)], lrs, is_initial)
+            ms.append(m)
+        return (p, o, v), ms
+
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    ref, ms = eager()
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3 / WIN_STEPS
+    eager_launches = read_launches()
+    eager_runs = read_runs()
+    losses = torch.stack([m["loss"] for m in ms]).cpu()
+    drops = [int(m["n_dropped"]) for m in ms]
+    rect = [int(m["n_dropped_rect"]) for m in ms]
+
+    scan = T.make_train_scan(cfg, rcfg, step)
+    sel_dev = torch.as_tensor(sel, device=device)
+
+    def window():
+        return scan(params, opt, variables, stack, sel_dev, lrs, is_initial)
+
+    torch.cuda.synchronize()
+    zero_launches()          # the main path: the window's first call
+    t0 = time.perf_counter()
+    p, o, v, wm = window()
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    runs = read_runs()
+    win = scan.window
+    steps = win.last_steps
+    diff = win_diff(ref, (p, o, v))
+    stats_first = dict(win.stats)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p2, o2, v2, _ = window()           # captured: replays only
+    torch.cuda.synchronize()
+    window_ms = (time.perf_counter() - t0) * 1e3 / WIN_STEPS
+    repeat_diff = win_diff((p, o, v), (p2, o2, v2))
+    del p2, o2, v2
+    # the eager side traced over WIN_PROFILE_STEPS steps: each traced step
+    # costs seconds of the profiler's own processing
+    prof_eager = profile_calls(lambda: eager(WIN_PROFILE_STEPS), 1,
+                               WIN_PROFILE_STEPS)
+    prof_win = profile_calls(window, 1, WIN_STEPS)
+
+    # the first step's table (start state, its camera): the capacity was
+    # sized on it, so it holds every live pair
+    eager_t, static_t, n_chan, kw = win_tables(
+        params, variables, frames[int(sel[0])]["camera"], k, win.pair_cap)
+    rec_e, st_e, cn_e, slot_e = eager_t
+    rec_s, st_s, cn_s, slot_s, pstats = static_t
+    n_live = slot_e.shape[0]
+    tables_equal = bool(
+        int(pstats[1]) == 0 and int(pstats[0]) == n_live
+        and torch.equal(rec_s[:, :n_live], rec_e[:, :n_live])
+        and torch.equal(st_s, st_e) and torch.equal(cn_s, cn_e)
+        and torch.equal(slot_s[:n_live], slot_e)
+        and not bool(rec_s[:, n_live:].any()))
+    k1_errs, _ = k1_against_plain(rec_s, st_s, cn_s, n_chan, kw)
+    k2_errs, _ = k2_against_plain(rec_s, st_s, cn_s, kw, device)
+    rec = dict(
+        point=name, k=k, is_initial=is_initial, cams=sel.tolist(),
+        rows=int(variables["alive"].shape[0]),
+        eager_ms_per_step=eager_ms, window_ms_per_step=window_ms,
+        first_window_ms=first_ms, capture_ms=stats_first["capture_ms"],
+        pair_cap=stats_first["pair_cap"], max_live=stats_first["max_live"],
+        live_per_step=steps["n_live_pairs"].tolist(),
+        redos=stats_first["redos"], stats_first=stats_first,
+        stats=dict(win.stats), launches=launches, runs=runs,
+        eager_launches=eager_launches, eager_runs=eager_runs,
+        state_not_bitwise=diff,
+        repeat_not_bitwise=repeat_diff,
+        loss_bitwise=bool(torch.equal(steps["loss"].cpu(), losses)),
+        drops_equal=steps["n_dropped"].tolist() == drops
+        and steps["n_dropped_rect"].tolist() == rect
+        and int(wm["n_dropped_rect"]) == sum(rect),
+        n_dropped_rect=rect, loss=losses.tolist(),
+        eager_profile=prof_eager, window_profile=prof_win,
+        table=dict(n_pairs=n_live, pair_cap=win.pair_cap,
+                   ne_pad=rec_s.shape[1], bitwise_eager=tables_equal),
+        k1_vs_plain=k1_errs, k2_vs_plain=k2_errs)
+    return rec, (p, o, v)
+
+
+def phase_window_main_path(scene, device, smi):
+    """The multi-step training window (`steps_per_call`) on the bench
+    training: the 200k scene's init cloud in an 800,768-row table, 4
+    cameras at 640x360. At t = 0 (K = 8) and at t > 0 (K = 64, the kNN
+    graph and extrapolation of `train` on the t = 0 window's end state, the
+    physics terms on), WIN_STEPS eager `make_train_step` steps and the same
+    steps as one `make_train_scan` window (a CUDA graph of the step,
+    replayed) from the same state and camera stream. Gates, per point: the
+    window's parameters, Adam state, variables, per-step losses and drop
+    counts bitwise the eager loop's, and again on a second call of the
+    captured window; K1 and K2 run exactly once per step of the window
+    (its eager first steps and replays), as the kernels count their runs
+    on the device with the counts set to 0 just before its first call,
+    while the wrappers' host counts see only the eager steps and the
+    capture (a replay launches nothing from the host); the eager loop's
+    runs equal its host launches; the window's record table at its pair
+    capacity
+    bitwise the eager table on the live pairs (zero past them) and K1 / K2
+    against their plain versions on it. Reported: pair capacity, largest
+    live count, redos, eager and window ms per step (host clock around
+    synchronised calls), capture ms, and each side's device idle share and
+    host launches per step (`torch.profiler`)."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.data.synthetic import (
+        init_point_cloud, make_dataset)
+    from dynamic3dgaussians_tpu_torch.models import gaussians as G
+    from dynamic3dgaussians_tpu_torch.train import optim
+    from dynamic3dgaussians_tpu_torch.train import trainer as T
+    from dynamic3dgaussians_tpu_torch.train.config import TrainConfig
+    t_start = time.perf_counter()
+    gt = bench_gt(scene)
+    with torch.no_grad():
+        ds, w2c, _ = make_dataset(gt, num_t=2, num_cams=TRAIN_CAMS, w=W, h=H,
+                                  f=F, radius=TRAIN_RADIUS, device=device)
+    params, variables = G.init_params(init_point_cloud(gt), w2c,
+                                      device=device)
+    state = (params, optim.init(params), variables)
+    torch.cuda.synchronize()
+    seconds = dict(setup=time.perf_counter() - t_start)
+    points, launches = {}, dict(raster_fwd=0, raster_bwd=0, sol_probe=0)
+    runs = dict(raster_fwd=0, raster_bwd=0)
+    for name, k in WIN_POINTS:
+        t0 = time.perf_counter()
+        if name != "t0":
+            p, o, v = state
+            p, v, o, _ = G.compact_with_optimizer(p, v, o)
+            p, v, o = T.initialize_post_first_timestep(p, v, TrainConfig(), o)
+            p, v, o = T.initialize_per_timestep(p, v, o)
+            state = (p, o, v)
+            torch.cuda.synchronize()
+            seconds["graph"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+        rec, state = win_point(name, k, state, ds[0 if name == "t0" else 1],
+                               device, smi)
+        seconds[name] = time.perf_counter() - t0
+        points[name] = rec
+        launches = {key: launches[key] + rec["launches"][key]
+                    for key in launches}
+        runs = {key: runs[key] + rec["runs"][key] for key in runs}
+        print(f"window {name} K={k}: pair_cap {rec['pair_cap']}, largest "
+              f"live {rec['max_live']}, redos {rec['redos']}; K1/K2 runs "
+              f"{rec['runs']['raster_fwd']}/{rec['runs']['raster_bwd']} "
+              f"(host launches {rec['launches']['raster_fwd']}/"
+              f"{rec['launches']['raster_bwd']}); eager "
+              f"{rec['eager_ms_per_step']:.2f} ms/step (idle "
+              f"{rec['eager_profile']['device_idle_share']}), window "
+              f"{rec['window_ms_per_step']:.2f} ms/step (idle "
+              f"{rec['window_profile']['device_idle_share']}), capture "
+              f"{rec['capture_ms']:.1f} ms; {smi}", flush=True)
+    out = dict(phase="window_main_path", card=smi, steps=WIN_STEPS,
+               points=points, seconds=seconds,
+               phase_s=time.perf_counter() - t_start)
+    emit(out)
+    want_runs = dict(raster_fwd=WIN_STEPS, raster_bwd=WIN_STEPS)
+    checks = {}
+    for name, rec in points.items():
+        st = rec["stats_first"]
+        host = st["eager_steps"] + st["captures"]
+        checks[f"{name} state bitwise"] = not rec["state_not_bitwise"]
+        checks[f"{name} repeat bitwise"] = not rec["repeat_not_bitwise"]
+        checks[f"{name} losses bitwise"] = rec["loss_bitwise"]
+        checks[f"{name} drops equal"] = rec["drops_equal"]
+        checks[f"{name} runs"] = rec["runs"] == want_runs
+        checks[f"{name} host launches"] = rec["launches"] == dict(
+            raster_fwd=host, raster_bwd=host, sol_probe=0)
+        checks[f"{name} eager runs"] = rec["eager_runs"] == want_runs and \
+            rec["eager_launches"] == dict(want_runs, sol_probe=0)
+        checks[f"{name} static table"] = rec["table"]["bitwise_eager"]
+        checks[f"{name} K1 vs plain"] = rec["k1_vs_plain"]["ok"]
+        checks[f"{name} K2 vs plain"] = rec["k2_vs_plain"]["ok"]
+        checks[f"{name} graph replayed"] = rec["stats_first"]["replays"] > 0
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"window_main_path failed: {bad}")
+    return dict(launches=launches, runs=runs, record=out)
 
 
 def floor_rec(k1, k2, k3, train_launches, smi):
@@ -4082,6 +4489,7 @@ def main() -> int:
         motion_rec = phase_motion_main_path(scene, device, smi, tmp)
     par_rec = phase_parallel_main_path(scene, device, smi)
     longrun_rec = phase_longrun_main_path(device, smi)
+    window_rec = phase_window_main_path(scene, device, smi)
     phase_tiled(scene, device, smi)
     phase_knn_approx(scene, device, smi)
     probe_rec = phase_probe_main_path(k3, device, smi)
@@ -4098,9 +4506,16 @@ def main() -> int:
              ("tracking", track_rec), ("playback", pb_rec),
              ("view", viewer_rec), ("feature", feature_rec),
              ("ego", ego_rec), ("motion", motion_rec),
-             ("parallel", par_rec), ("longrun", longrun_rec))
+             ("parallel", par_rec), ("longrun", longrun_rec),
+             ("window", window_rec))
     by_path = {name: {p: r["launches"][name] for p, r in paths}
                for name in ("raster_fwd", "raster_bwd", "sol_probe")}
+    # runs counted by the kernels on the device, replays included, in the
+    # paths that replay a CUDA graph of the train step (longrun: its
+    # --steps_per_call run)
+    runs_by_path = {name: {p: r["runs"][name] for p, r in (
+                        ("longrun", longrun_rec), ("window", window_rec))}
+                    for name in ("raster_fwd", "raster_bwd")}
     wide = k3["stream_compute/card_wide"]
     emit({"kernels": [
         dict(name="raster_fwd", route="cuda",
@@ -4108,6 +4523,7 @@ def main() -> int:
              replaces="dynamic3dgaussians_tpu/ops/pallas/raster_fwd.py:419",
              launches=train_rec["launches"]["raster_fwd"],
              launches_by_path=by_path["raster_fwd"],
+             runs_by_path=runs_by_path["raster_fwd"],
              max_abs_err=max(b1["err_chan"], b1["err_depth"]),
              ms=b1["ms"], plain_ms=b1["plain_ms"],
              bound_ms=b1["bound_ms"], bound_by=b1["bound_by"],
@@ -4117,6 +4533,7 @@ def main() -> int:
              replaces="dynamic3dgaussians_tpu/ops/pallas/raster_bwd.py:271",
              launches=train_rec["launches"]["raster_bwd"],
              launches_by_path=by_path["raster_bwd"],
+             runs_by_path=runs_by_path["raster_bwd"],
              max_abs_err=b2["err_abs"], ms=b2["ms"],
              plain_ms=b2["plain_ms"], bound_ms=b2["bound_ms"],
              bound_by=b2["bound_by"], library_ms=None),

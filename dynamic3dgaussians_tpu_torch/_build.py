@@ -110,10 +110,10 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.d3g_raster_fwd.argtypes = [vp, i64, i32, vp, vp, i32, i32, i32, i32,
-                                   i32, vp, vp, vp, vp]
+                                   i32, vp, vp, vp, vp, vp]
     lib.d3g_raster_fwd.restype = i32
     lib.d3g_raster_bwd.argtypes = [vp, i64, i32, vp, vp, vp, vp, vp, i32, i32,
-                                   i32, i32, i32, vp, vp, vp]
+                                   i32, i32, i32, vp, vp, vp, vp]
     lib.d3g_raster_bwd.restype = i32
     lib.d3g_sol_probe.argtypes = [vp, i64, i32, i32, vp, vp]
     lib.d3g_sol_probe.restype = i32

@@ -167,19 +167,21 @@ def cmd_train(args):
     def on_graph(t, timings):
         logger.log(0, timings, prefix=f"t{t}/graph/")
 
-    last_step_end = [None]
+    last_step_end = [None, None]        # (host clock, step index)
 
     def on_iter(t, i, k):
         # the wall time of one iteration of the loop (step, densify, report),
-        # from the end of the previous one: the first step of each timestep
-        # is not timed
+        # from the end of the previous one, per step (a window of
+        # steps_per_call steps calls this once, after its last): the first
+        # call of each timestep is not timed
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         now = time.perf_counter()
         if last_step_end[0] is not None:
-            logger.log(i, {"step_ms": (now - last_step_end[0]) * 1e3,
+            n = i - last_step_end[1]
+            logger.log(i, {"step_ms": (now - last_step_end[0]) * 1e3 / n,
                            "k": k}, prefix=f"t{t}/time/")
-        last_step_end[0] = now
+        last_step_end[:] = [now, i]
 
     get_frames = dataset if callable(dataset) else dataset.__getitem__
 

@@ -142,7 +142,8 @@ __global__ void raster_bwd_kernel(
     const int* __restrict__ starts, const int* __restrict__ counts,
     const int* __restrict__ n_active, const float* __restrict__ log_t,
     const float* __restrict__ d_raw, int grid_w, int tile_h, int tile_w,
-    int chunk, const int* __restrict__ order, float* __restrict__ d_out) {
+    int chunk, const int* __restrict__ order, float* __restrict__ d_out,
+    unsigned long long* __restrict__ runs) {
   constexpr int R = GEOM_ROWS + CV;  // staged record rows
   constexpr int G = 6 + CV;          // gradient terms per record
   constexpr int GP = G + 1;          // partial row stride (odd: no conflicts)
@@ -158,6 +159,7 @@ __global__ void raster_bwd_kernel(
   float* part = boxes + 2 * 4 * chunk;         // nwarps x WORD x GP
   unsigned* touched = reinterpret_cast<unsigned*>(part + nwarps * WORD * GP);
 
+  if (runs != nullptr && blockIdx.x == 0 && tid == 0) atomicAdd(runs, 1ull);
   const int start = starts[tile];
   const int count = counts[tile];
   const int nact = n_active[tile];
@@ -302,7 +304,7 @@ cudaError_t launch(const float* rec, int64_t ne_pad, const int* starts,
                    const int* counts, const int* n_active, const float* log_t,
                    const float* d_raw, int num_tiles, int grid_w, int tile_h,
                    int tile_w, int chunk, int* order, float* d_out,
-                   cudaStream_t stream) {
+                   unsigned long long* runs, cudaStream_t stream) {
   constexpr int order_threads = 256;
   tile_order_kernel<<<(num_tiles + order_threads - 1) / order_threads,
                       order_threads, order_threads * sizeof(int), stream>>>(
@@ -321,7 +323,7 @@ cudaError_t launch(const float* rec, int64_t ne_pad, const int* starts,
   if (err != cudaSuccess) return err;
   raster_bwd_kernel<CV><<<num_tiles, nthreads, smem, stream>>>(
       rec, ne_pad, starts, counts, n_active, log_t, d_raw, grid_w, tile_h,
-      tile_w, chunk, order, d_out);
+      tile_w, chunk, order, d_out, runs);
   return cudaGetLastError();
 }
 
@@ -332,12 +334,15 @@ cudaError_t launch(const float* rec, int64_t ne_pad, const int* starts,
 // returns cudaErrorInvalidValue without launching; so does a configuration
 // whose shared memory exceeds the card's (large tiles at large CV).
 // `order` is scratch of num_tiles ints (the tiles heaviest first).
+// `runs`, when not null, is a device counter to which each run of the
+// kernel adds one (as in raster_fwd.cu).
 extern "C" int d3g_raster_bwd(const float* rec, long long ne_pad, int n_rows,
                               const int* starts, const int* counts,
                               const int* n_active, const float* log_t,
                               const float* d_raw, int num_tiles, int grid_w,
                               int tile_h, int tile_w, int chunk, int* order,
-                              float* d_out, void* stream) {
+                              float* d_out, unsigned long long* runs,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nthreads = tile_h * tile_w;
   if (nthreads < 32 || nthreads > 1024 || nthreads % 32)
@@ -348,7 +353,7 @@ extern "C" int d3g_raster_bwd(const float* rec, long long ne_pad, int n_rows,
   case CV:                                                                 \
     return (int)launch<CV>(rec, ne_pad, starts, counts, n_active, log_t,   \
                            d_raw, num_tiles, grid_w, tile_h, tile_w, chunk, \
-                           order, d_out, s);
+                           order, d_out, runs, s);
     D3G_CASE(8)
     D3G_CASE(16)
     D3G_CASE(24)

@@ -64,7 +64,8 @@ __global__ void raster_fwd_kernel(const float* __restrict__ rec, int64_t ne_pad,
                   const int* __restrict__ starts,
                   const int* __restrict__ counts, int grid_w, int tile_h,
                   int tile_w, int chunk, float* __restrict__ raw,
-                  float* __restrict__ log_t, int* __restrict__ n_active) {
+                  float* __restrict__ log_t, int* __restrict__ n_active,
+                  unsigned long long* __restrict__ runs) {
   constexpr int R = GEOM_ROWS + CV;
   extern __shared__ float smem[];
   float* recs = smem;                   // 2 x R x chunk
@@ -77,6 +78,7 @@ __global__ void raster_fwd_kernel(const float* __restrict__ rec, int64_t ne_pad,
   const int in_warp = min(32, nthreads - (tid & ~31));
   const unsigned wmask =
       in_warp == 32 ? d3g::FULL_MASK : (1u << in_warp) - 1u;
+  if (runs != nullptr && tile == 0 && tid == 0) atomicAdd(runs, 1ull);
   const int start = starts[tile];
   const int count = counts[tile];
   const int base = (start / chunk) * chunk;
@@ -173,7 +175,8 @@ template <int CV>
 cudaError_t launch(const float* rec, int64_t ne_pad, const int* starts,
                    const int* counts, int num_tiles, int grid_w, int tile_h,
                    int tile_w, int chunk, float* raw, float* log_t,
-                   int* n_active, cudaStream_t stream) {
+                   int* n_active, unsigned long long* runs,
+                   cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (2 * (size_t)(GEOM_ROWS + CV) * chunk + 2 * 4 * chunk);
   cudaError_t err = cudaFuncSetAttribute(
@@ -182,26 +185,30 @@ cudaError_t launch(const float* rec, int64_t ne_pad, const int* starts,
   if (err != cudaSuccess) return err;
   raster_fwd_kernel<CV><<<num_tiles, tile_h * tile_w, smem, stream>>>(
       rec, ne_pad, starts, counts, grid_w, tile_h, tile_w, chunk, raw, log_t,
-      n_active);
+      n_active, runs);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Returns a cudaError_t as int (0 = launched). An unsupported value-row
-// count returns cudaErrorInvalidValue without launching.
+// count returns cudaErrorInvalidValue without launching. `runs`, when not
+// null, is a device counter to which each run of the kernel adds one (its
+// first thread, with an atomic): eager or replayed from a CUDA graph.
 extern "C" int d3g_raster_fwd(const float* rec, long long ne_pad, int n_rows,
                               const int* starts, const int* counts,
                               int num_tiles, int grid_w, int tile_h,
                               int tile_w, int chunk, float* raw, float* log_t,
-                              int* n_active, void* stream) {
+                              int* n_active, unsigned long long* runs,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (num_tiles == 0) return (int)cudaSuccess;
   switch (n_rows - GEOM_ROWS) {
 #define D3G_CASE(CV)                                                        \
   case CV:                                                                  \
     return (int)launch<CV>(rec, ne_pad, starts, counts, num_tiles, grid_w,  \
-                           tile_h, tile_w, chunk, raw, log_t, n_active, s);
+                           tile_h, tile_w, chunk, raw, log_t, n_active,     \
+                           runs, s);
     D3G_CASE(8)
     D3G_CASE(16)
     D3G_CASE(24)

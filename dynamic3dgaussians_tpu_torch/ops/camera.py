@@ -122,3 +122,13 @@ def stack_cameras(cams) -> Camera:
                for f in dataclasses.fields(Camera)
                if f.name not in ("height", "width", "near", "far")}
     return dataclasses.replace(first, **stacked)
+
+
+def select_camera(stacked: Camera, idx: torch.Tensor) -> Camera:
+    """Camera `idx` of a `stack_cameras` batch, by a (1,) int64 index
+    tensor on the cameras' device: a gather per field, with no host read
+    (so it can run inside a captured CUDA graph)."""
+    fields = {f.name: getattr(stacked, f.name).index_select(0, idx)[0]
+              for f in dataclasses.fields(Camera)
+              if f.name not in ("height", "width", "near", "far")}
+    return dataclasses.replace(stacked, **fields)

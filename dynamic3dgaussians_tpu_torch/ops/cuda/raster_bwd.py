@@ -36,6 +36,7 @@ import math
 import torch
 
 from dynamic3dgaussians_tpu_torch.device import no_tf32
+from dynamic3dgaussians_tpu_torch.ops.cuda import launches
 from dynamic3dgaussians_tpu_torch.ops.compositing import ALPHA_EPS, ALPHA_MAX
 from dynamic3dgaussians_tpu_torch.ops.cuda.raster_fwd import (
     GEOM_ROWS, KERNEL_CV, _check_args, tile_pixel_coords)
@@ -153,7 +154,9 @@ def composite_tiles_bwd(rec_t: torch.Tensor, tile_starts: torch.Tensor,
 
     A CPU tensor takes the plain version (`composite_tiles_bwd_torch`); a
     CUDA tensor launches `csrc/raster_bwd.cu` or raises. Each launch adds
-    one to `composite_tiles_bwd.launches`.
+    one to `composite_tiles_bwd.launches`; each run of the kernel, eager or
+    replayed from a CUDA graph, adds one to its device counter
+    (`launches.py`).
     """
     n_val = _check_bwd_args(rec_t, tile_starts, tile_counts, n_active, log_t,
                             d_raw, num_tiles, tile_h, tile_w, chunk)
@@ -188,7 +191,9 @@ def composite_tiles_bwd(rec_t: torch.Tensor, tile_starts: torch.Tensor,
             tile_starts.data_ptr(), tile_counts.data_ptr(),
             n_active.data_ptr(), log_t.data_ptr(), d_raw.data_ptr(),
             num_tiles, grid_w, tile_h, tile_w, chunk, order.data_ptr(),
-            d_out.data_ptr(), stream)
+            d_out.data_ptr(),
+            launches.counter(composite_tiles_bwd, rec_t.device).data_ptr(),
+            stream)
     _build.check(lib, err, "raster_bwd kernel launch")
     composite_tiles_bwd.launches += 1
     return d_out

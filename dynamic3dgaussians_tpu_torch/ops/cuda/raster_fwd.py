@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from dynamic3dgaussians_tpu_torch.device import no_tf32
+from dynamic3dgaussians_tpu_torch.ops.cuda import launches
 from dynamic3dgaussians_tpu_torch.ops.compositing import ALPHA_EPS, ALPHA_MAX
 
 GEOM_ROWS = 8        # x, y, conic a, b, c, opacity, pad, pad
@@ -195,7 +196,8 @@ def composite_tiles(rec_t: torch.Tensor, tile_starts: torch.Tensor,
 
     A CPU tensor takes the plain version (`composite_tiles_torch`); a CUDA
     tensor launches `csrc/raster_fwd.cu` or raises. Each launch adds one to
-    `composite_tiles.launches`.
+    `composite_tiles.launches`; each run of the kernel, eager or replayed
+    from a CUDA graph, adds one to its device counter (`launches.py`).
     """
     n_val = _check_args(rec_t, tile_starts, tile_counts, num_tiles, tile_h,
                         tile_w, chunk)
@@ -226,7 +228,8 @@ def composite_tiles(rec_t: torch.Tensor, tile_starts: torch.Tensor,
             rec_t.data_ptr(), rec_t.shape[1], rec_t.shape[0],
             tile_starts.data_ptr(), tile_counts.data_ptr(), num_tiles,
             grid_w, tile_h, tile_w, chunk, raw.data_ptr(), log_t.data_ptr(),
-            n_active.data_ptr(), stream)
+            n_active.data_ptr(),
+            launches.counter(composite_tiles, dev).data_ptr(), stream)
     _build.check(lib, err, "raster_fwd kernel launch")
     composite_tiles.launches += 1
     return raw, log_t, n_active

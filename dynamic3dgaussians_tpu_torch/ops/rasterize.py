@@ -100,6 +100,11 @@ class RenderOutput:
     n_dropped_rect: Optional[torch.Tensor] = None
     n_dropped_capacity: Optional[torch.Tensor] = None
     n_dropped_tile_overflow: Optional[torch.Tensor] = None
+    # () int64, with a pair_cap only: the live pairs, and those past the
+    # capacity (not a drop the reference makes: a result with any is to be
+    # discarded, never counted among the drops above)
+    n_live_pairs: Optional[torch.Tensor] = None
+    n_pair_overflow: Optional[torch.Tensor] = None
 
 
 def _grad_gate(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -192,7 +197,9 @@ def render(cam: Camera,
            grad_mask: Optional[torch.Tensor] = None,
            method: str = "auto",
            config: Optional[RasterConfig] = None,
-           device: DeviceLike = None) -> RenderOutput:
+           device: DeviceLike = None,
+           pair_cap: Optional[int] = None,
+           pair_stats: bool = False) -> RenderOutput:
     """Differentiable gaussian-splat render.
 
     means3d (N, 3); colors (N, 3) linear RGB, ignored when `sh` (N, K, 3) is
@@ -203,6 +210,13 @@ def render(cam: Camera,
     gradient is the densification statistic; grad_mask (N,) {0, 1} zeroes
     every gradient of the masked gaussians. Runs on `device` (default
     `cuda`), where `cam` must already be; the other inputs are moved there.
+    pair_cap (sorted-pair paths): a fixed pair capacity for the record
+    table, so that the render reads nothing back from the device (a step
+    captured in a CUDA graph); live pairs past it are missing from the
+    image and counted in `n_pair_overflow`, which the caller must check.
+    None: the table holds exactly the live pairs (one host read of their
+    count), and `n_live_pairs` / `n_pair_overflow` are set only with
+    pair_stats (to the count and 0).
     """
     if method not in METHODS:
         raise ValueError(f"unknown render method {method!r}; one of "
@@ -252,6 +266,7 @@ def render(cam: Camera,
                    mean2d_probe_ndc=mean2d_probe_ndc)
     zero = torch.zeros((), dtype=torch.int32, device=dev)
     n_dropped_capacity = n_tile_overflow = zero
+    stats = None
 
     if method == "reference":
         out = render_primitives_reference(cam, proj, all_chan, opacity,
@@ -277,17 +292,20 @@ def render(cam: Camera,
         n_dropped_capacity = bins.n_dropped_capacity
     else:
         op = torch.where(proj.valid, opacity, torch.zeros_like(opacity))
-        channels, depth, alpha, n_dropped_rect = render_sorted(
+        channels, depth, alpha, n_dropped_rect, stats = render_sorted(
             cam.height, cam.width, proj, all_chan, op, full_bg,
             tile_h=cfg.tile_h, tile_w=cfg.tile_w, chunk=cfg.chunk,
             max_tiles_per_gaussian=cfg.max_tiles_per_gaussian,
             fused_key=cfg.fused_key, depth_mode=cfg.depth_mode,
             exact_cull=cfg.exact_cull, enum_cap=cfg.emit_enum_cap,
-            use_kernel=method == "cuda")
+            use_kernel=method == "cuda", pair_cap=pair_cap,
+            pair_stats=pair_stats)
 
     return RenderOutput(
         rgb=channels[..., :n_rgb],
         extra=None if extra_channels is None else channels[..., n_rgb:],
         depth=depth, alpha=alpha, radii=proj.radius,
         n_dropped_rect=n_dropped_rect, n_dropped_capacity=n_dropped_capacity,
-        n_dropped_tile_overflow=n_tile_overflow)
+        n_dropped_tile_overflow=n_tile_overflow,
+        n_live_pairs=None if stats is None else stats[0],
+        n_pair_overflow=None if stats is None else stats[1])

@@ -14,6 +14,13 @@ the result:
     columns through the sorted gaussian ids. Sentinel slots never reach the
     table; the kernel never reads past a tile's segment, and the table keeps
     the reference's chunk of zero slack at its end.
+  * `prepare_records_static` is the same with no host read, for a step
+    captured in a CUDA graph: the live pairs go into a fixed `pair_cap`
+    columns (a cumulative sum and a scatter in slot order, where the eager
+    form uses `nonzero`), the unused columns sort last under the sentinel
+    tile and stay zero, and the count of live pairs past `pair_cap` comes
+    back on the device. With pair_cap >= the live count its table, ranges
+    and slots are bitwise the eager form's.
   * depth_mode "total" and the two-key fallback (no depth bits left in a
     32-bit key) sort one 64-bit key, (key << 32) | float bits of depth.
     Live pairs have depth > near > 0, where float bits order like floats.
@@ -21,13 +28,15 @@ the result:
     the reference's unsort + K-axis sum does, deterministically: each live
     pair keeps its emission slot (k-major, slot = k * N + gaussian), its
     rows are stored at that slot of a zeroed (rows, K * N) buffer (a plain
-    indexed store: slots are unique), and the buffer is summed over K. No
-    index_add_: on CUDA it sums with atomics in an order that changes from
-    run to run. The depth row's gradient passes to the view depth as
-    identity in every depth mode (as the reference does for the quantized
-    key depth); the row of ones takes none.
+    indexed store: slots are unique; the static form's unused columns carry
+    distinct unused emission slots, whose rows are zero), and the buffer is
+    summed over K. No index_add_: on CUDA it sums with atomics in an order
+    that changes from run to run. The depth row's gradient passes to the
+    view depth as identity in every depth mode (as the reference does for
+    the quantized key depth); the row of ones takes none.
 
-Sorts break ties arbitrarily, as the reference's unstable sorts do.
+The sorts are stable: pairs with equal keys keep their emission order (one
+of the orders the reference's unstable sorts may give) in both forms.
 """
 
 from __future__ import annotations
@@ -82,7 +91,7 @@ def round_f16(x: torch.Tensor) -> torch.Tensor:
 
 def affine_depth_range(live: torch.Tensor, depth: torch.Tensor):
     """(dmin, inv_width) of the live pairs' depth for the affine key."""
-    big = torch.tensor(3e38, dtype=torch.float32, device=depth.device)
+    big = torch.full((), 3e38, dtype=torch.float32, device=depth.device)
     dmin = torch.min(torch.where(live, depth, big))
     dmax = torch.max(torch.where(live, depth, -big))
     inv_width = 1.0 / torch.clamp(dmax - dmin, min=1e-20)
@@ -108,8 +117,8 @@ def dequantize_depth_key_affine(key: torch.Tensor, bits_z: int,
                                 ) -> torch.Tensor:
     """Bucket depth back out of an affine key (error <= half a bucket)."""
     zq = (key & ((1 << bits_z) - 1)).to(torch.float32)
-    top = torch.tensor(float((1 << bits_z) - 1), dtype=torch.float32,
-                       device=key.device)
+    top = torch.full((), float((1 << bits_z) - 1), dtype=torch.float32,
+                     device=key.device)
     return dmin + zq / (top * inv_width)
 
 
@@ -117,6 +126,27 @@ def _key64(hi32: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
     """(hi32, depth) as one int64 key; depth > 0 for every live pair."""
     bits = depth.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
     return (hi32.to(torch.int64) << 32) | bits
+
+
+def _sort_live(lt: torch.Tensor, ld: torch.Tensor, live: torch.Tensor,
+               bits_z: int, depth_mode: str):
+    """(perm, sorted depth) of the pairs' (tile, depth) keys, a stable sort.
+    lt, ld: tile and view depth of each pair; `live` marks the pairs whose
+    depth spans the affine key (the others carry the sentinel tile, which
+    sorts them last)."""
+    if bits_z > 0:
+        dmin, inv_w = affine_depth_range(live, ld)
+        key = fuse_tile_depth_key_affine(lt, ld, bits_z, dmin, inv_w)
+        if depth_mode == "total":
+            perm = torch.argsort(_key64(key, ld), stable=True)
+        else:
+            perm = torch.argsort(key, stable=True)
+        if depth_mode == "quantized":
+            return perm, dequantize_depth_key_affine(key[perm], bits_z, dmin,
+                                                     inv_w)
+        return perm, ld[perm]
+    perm = torch.argsort(_key64(lt, ld), stable=True)
+    return perm, ld[perm]
 
 
 def prepare_records(tile_key: torch.Tensor, gid: torch.Tensor,
@@ -143,26 +173,68 @@ def prepare_records(tile_key: torch.Tensor, gid: torch.Tensor,
     lt = tile_key[live_idx]
     lg = gid[live_idx].long()
     ld = table[depth_row, lg]
-    if bits_z > 0:
-        dmin, inv_w = affine_depth_range(torch.ones_like(lt, dtype=torch.bool),
-                                         ld)
-        key = fuse_tile_depth_key_affine(lt, ld, bits_z, dmin, inv_w)
-        if depth_mode == "total":
-            perm = torch.argsort(_key64(key, ld))
-        else:
-            perm = torch.argsort(key)
-        sk = key[perm]
-        if depth_mode == "quantized":
-            sd = dequantize_depth_key_affine(sk, bits_z, dmin, inv_w)
-        else:
-            sd = ld[perm]
-    else:
-        perm = torch.argsort(_key64(lt, ld))
-        sd = ld[perm]
+    perm, sd = _sort_live(lt, ld, torch.ones_like(lt, dtype=torch.bool),
+                          bits_z, depth_mode)
     starts, counts = tile_ranges(lt[perm].contiguous(), num_tiles)
     rec_t[:, :n_live] = table[:, lg[perm]]
     rec_t[depth_row, :n_live] = sd
     return rec_t, starts.contiguous(), counts.contiguous(), live_idx[perm]
+
+
+def prepare_records_static(tile_key: torch.Tensor, gid: torch.Tensor,
+                           table: torch.Tensor, *, n_chan: int,
+                           num_tiles: int, chunk: int, bits_z: int,
+                           depth_mode: str, pair_cap: int):
+    """`prepare_records` at a fixed pair capacity, with no host read.
+
+    The live slots are compacted in slot order into `pair_cap` columns,
+    and the columns past the live count take the unused emission slots in
+    slot order (there are at least as many: pair_cap <= K * N): they carry
+    the sentinel tile, sort last, stay zero in the table, and give the
+    backward distinct slots whose rows are zero. Returns (rec_t (8 + CV,
+    NE_pad), starts, counts, slot (pair_cap,), stats) with NE_pad =
+    (ceil(pair_cap / chunk) + 1) * chunk
+    and stats int64 [live pairs, live pairs past pair_cap]: when the second
+    is zero, rec_t[:, :n_live], starts, counts and slot[:n_live] are bitwise
+    `prepare_records`'s; when it is not, the pairs past the capacity are
+    missing from the table.
+    """
+    dev = table.device
+    depth_row = GEOM_ROWS + n_chan
+    n_slots = tile_key.shape[0]
+    i64 = torch.int64
+    live = tile_key < num_tiles
+    pos = torch.cumsum(live, 0, dtype=i64) - 1
+    n_live = pos[-1] + 1
+    # the k-th live slot (in slot order) to column k, the k-th unused one
+    # to column n_live + k; what falls past the capacity to column
+    # pair_cap, which is cut off
+    col = torch.where(live, pos, n_live + torch.arange(
+        n_slots, dtype=i64, device=dev) - pos - 1)
+    col = torch.where(col < pair_cap, col, torch.full_like(col, pair_cap))
+    src = torch.empty((pair_cap + 1,), dtype=i64, device=dev)
+    src[col] = torch.arange(n_slots, dtype=i64, device=dev)
+    src = src[:pair_cap]
+    valid = torch.arange(pair_cap, dtype=i64, device=dev) < n_live
+    lt = tile_key[src]
+    lg = gid[src].long()
+    ld = table[depth_row, lg]
+    # an unused column's depth (some gaussian's, maybe culled) must not
+    # reach the affine key's range or its rounding
+    ld = torch.where(valid, ld, torch.zeros_like(ld))
+    perm, sd = _sort_live(lt, ld, valid, bits_z, depth_mode)
+    valid = valid[perm]
+    starts, counts = tile_ranges(lt[perm].contiguous(), num_tiles)
+    cols = table[:, lg[perm]]
+    cols[depth_row] = sd
+    ne_pad = (-(-pair_cap // chunk) + 1) * chunk
+    rec_t = torch.zeros((table.shape[0], ne_pad), dtype=torch.float32,
+                        device=dev)
+    rec_t[:, :pair_cap] = torch.where(valid[None], cols,
+                                      torch.zeros_like(cols))
+    slot = src[perm]
+    stats = torch.stack([n_live, torch.clamp(n_live - pair_cap, min=0)])
+    return rec_t, starts.contiguous(), counts.contiguous(), slot, stats
 
 
 def _untile(x, grid_h, grid_w, th, tw, h, w, c):
@@ -180,7 +252,8 @@ def record_columns(proj: Projected, colors: torch.Tensor,
     the conic rows, as the reference does outside its custom_vjp.
     """
     n = opacity.shape[0]
-    log2e = torch.tensor(LOG2E, dtype=torch.float32, device=opacity.device)
+    log2e = torch.full((), LOG2E, dtype=torch.float32,
+                       device=opacity.device)
     zero = torch.zeros((n,), dtype=torch.float32, device=opacity.device)
     n_chan = colors.shape[-1]
     cv_pad = -(-(n_chan + 2) // 8) * 8
@@ -232,19 +305,29 @@ def sorted_records(h: int, w: int, proj: Projected, colors: torch.Tensor,
 class _SortComposite(torch.autograd.Function):
     """table -> sort -> K1 forward; K2 -> pair-to-gaussian sum backward.
 
-    forward(table (8 + CV, N), tile_key (K*N,), gid (K*N,), spec) returns
-    the raw accumulators (T, P, CV). spec = (n_chan, num_tiles, grid_w,
+    forward(table (8 + CV, N), tile_key (K*N,), gid (K*N,), spec,
+    pair_cap=None, pair_stats=False) returns the raw accumulators (T, P,
+    CV), and with a pair_cap or pair_stats also int64 [live pairs, live
+    pairs past pair_cap] (no gradient): `prepare_records_static`'s, or the
+    eager table's [live pairs, 0]. spec = (n_chan, num_tiles, grid_w,
     tile_h, tile_w, chunk, bits_z, depth_mode, use_kernel).
     """
 
     @staticmethod
-    def forward(ctx, table, tile_key, gid, spec):
+    def forward(ctx, table, tile_key, gid, spec, pair_cap=None,
+                pair_stats=False):
         (n_chan, num_tiles, grid_w, tile_h, tile_w, chunk, bits_z,
          depth_mode, use_kernel) = spec
-        rec_t, starts, counts, slot = prepare_records(
-            tile_key, gid, table.detach(), n_chan=n_chan,
-            num_tiles=num_tiles, chunk=chunk, bits_z=bits_z,
-            depth_mode=depth_mode)
+        kw = dict(n_chan=n_chan, num_tiles=num_tiles, chunk=chunk,
+                  bits_z=bits_z, depth_mode=depth_mode)
+        if pair_cap is None:
+            rec_t, starts, counts, slot = prepare_records(
+                tile_key, gid, table.detach(), **kw)
+            stats = torch.tensor([slot.shape[0], 0], dtype=torch.int64,
+                                 device=table.device) if pair_stats else None
+        else:
+            rec_t, starts, counts, slot, stats = prepare_records_static(
+                tile_key, gid, table.detach(), pair_cap=pair_cap, **kw)
         composite = composite_tiles if use_kernel else composite_tiles_torch
         raw, log_t, n_active = composite(
             rec_t, starts, counts, num_tiles=num_tiles, grid_w=grid_w,
@@ -253,10 +336,13 @@ class _SortComposite(torch.autograd.Function):
         ctx.spec = spec
         ctx.n_slots = tile_key.shape[0]
         ctx.n_gauss = table.shape[1]
-        return raw
+        if stats is None:
+            return raw
+        ctx.mark_non_differentiable(stats)
+        return raw, stats
 
     @staticmethod
-    def backward(ctx, d_raw):
+    def backward(ctx, d_raw, *_):
         rec_t, starts, counts, log_t, n_active, slot = ctx.saved_tensors
         (n_chan, num_tiles, grid_w, tile_h, tile_w, chunk, _, _,
          use_kernel) = ctx.spec
@@ -270,7 +356,7 @@ class _SortComposite(torch.autograd.Function):
         per_slot[:, slot] = d_out[:, :slot.shape[0]]
         d_table = per_slot.reshape(n_rows, -1, ctx.n_gauss).sum(1)
         d_table[GEOM_ROWS + n_chan + 1:] = 0.0     # ones and pad rows
-        return d_table, None, None, None
+        return d_table, None, None, None, None, None
 
 
 def render_sorted(h: int, w: int, proj: Projected, colors: torch.Tensor,
@@ -278,16 +364,21 @@ def render_sorted(h: int, w: int, proj: Projected, colors: torch.Tensor,
                   tile_h: int = 16, tile_w: int = 16, chunk: int = 128,
                   max_tiles_per_gaussian: int = 8, fused_key: bool = True,
                   depth_mode: str = "quantized", exact_cull: bool = True,
-                  enum_cap: int = 0, use_kernel: bool = True):
+                  enum_cap: int = 0, use_kernel: bool = True,
+                  pair_cap: int = None, pair_stats: bool = False):
     """Differentiable sorted-pair render.
 
     colors (N, C) linear channels, opacity (N,) activated and zeroed for
     invalid gaussians, bg (C,) composited as bg * (1 - alpha). use_kernel
     picks the CUDA kernels (`composite_tiles`, `composite_tiles_bwd`) or
     their plain versions. Gradients reach proj's x2d, y2d, conic and depth,
-    colors and opacity.
+    colors and opacity. pair_cap: the table's fixed pair capacity
+    (`prepare_records_static`, no host read), or None for the eager table.
 
-    Returns (channels (H, W, C), depth (H, W), alpha (H, W), n_dropped_rect).
+    Returns (channels (H, W, C), depth (H, W), alpha (H, W), n_dropped_rect,
+    pair_stats): pair_stats is the static table's int64 [live pairs, live
+    pairs past pair_cap]; for the eager table [live pairs, 0] when
+    `pair_stats` asks for it, else None.
     """
     if depth_mode not in DEPTH_MODES:
         raise ValueError(f"depth_mode must be one of {DEPTH_MODES}, got "
@@ -303,7 +394,11 @@ def render_sorted(h: int, w: int, proj: Projected, colors: torch.Tensor,
     bits_z = depth_key_bits(num_tiles) if fused_key else 0
     spec = (n_chan, num_tiles, grid_w, tile_h, tile_w, chunk, bits_z,
             depth_mode, use_kernel)
-    raw = _SortComposite.apply(table, tile_key, gid, spec)
+    if pair_cap is None and not pair_stats:
+        raw, stats = _SortComposite.apply(table, tile_key, gid, spec), None
+    else:
+        raw, stats = _SortComposite.apply(table, tile_key, gid, spec,
+                                          pair_cap, True)
 
     alpha_t = raw[..., n_chan + 1]
     depth_t = raw[..., n_chan]
@@ -313,4 +408,4 @@ def render_sorted(h: int, w: int, proj: Projected, colors: torch.Tensor,
                         h, w, 1)[..., 0]
     alpha_img = _untile(alpha_t[..., None], grid_h, grid_w, tile_h, tile_w,
                         h, w, 1)[..., 0]
-    return channels, depth_img, alpha_img, n_dropped_rect
+    return channels, depth_img, alpha_img, n_dropped_rect, stats

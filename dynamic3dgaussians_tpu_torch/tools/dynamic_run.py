@@ -26,8 +26,9 @@ The reference's settings that exist for the TPU, and what they become:
     records are float32 and its config raises on True.
   * `pairs_budget_cap` (16 on the reference's CPU) becomes 0: it sizes
     only the tiled path, which this tool does not take.
-  * `--steps_per_call` is kept in the config; the port runs the same
-    steps one at a time (`train/config.py`).
+  * `--steps_per_call` W runs windows of W steps between host actions,
+    as the reference's (`train/trainer.py`): on the card one captured CUDA
+    graph of the step replayed W times, the same steps' result.
   * The XLA compilation cache (`compile_cache.enable()`) is dropped.
 
 The default `--out` is `artifacts/torch_dynamic_run_<device type>.json`,
@@ -56,7 +57,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--hw", type=int, default=256)
     ap.add_argument("--k_cap", type=int, default=8)
     ap.add_argument("--steps_per_call", type=int, default=1,
-                    help="kept in the config; the steps run one at a time")
+                    help="steps per window between host actions (on the "
+                    "card: replays of one captured CUDA graph)")
     ap.add_argument("--no_densify", action="store_true",
                     help="freeze capacity (the initial N is the target "
                     "scale)")

@@ -12,9 +12,11 @@ unchanged. What the port makes of the fields that exist for the TPU:
     path. scan_impl and unsort_impl only change how the TPU schedules the
     same result and are ignored; power_impl "mxu_fused" and
     pack_records=True change the numerics and raise.
-  * steps_per_call > 1 runs the same steps one at a time: the reference's
-    multi-step window only amortises TPU dispatch, and the camera stream is
-    the same either way.
+  * steps_per_call > 1 runs the steps between host actions in windows of
+    that many, as the reference does (`trainer.make_train_scan`): on the
+    card a CUDA graph of the step replayed once per step, no host read
+    inside a window; the steps, their camera stream and their result are
+    those of steps_per_call = 1.
   * knn_method "approx" builds the graph with `ops/knn.py::knn_approx`;
     neighbor_window (the TPU's windowed neighbour fetch) is not ported and
     raises.

@@ -57,8 +57,10 @@ def step(params: Params, grads: Params, state: AdamState,
     t = state.step + 1
     tf = t.to(torch.float32)
     f32 = dict(dtype=torch.float32, device=tf.device)
-    bc1 = 1.0 - torch.tensor(b1, **f32) ** tf
-    bc2 = 1.0 - torch.tensor(b2, **f32) ** tf
+    # torch.full, not torch.tensor: no host-to-device copy, so the step can
+    # be captured in a CUDA graph
+    bc1 = 1.0 - torch.full((), b1, **f32) ** tf
+    bc2 = 1.0 - torch.full((), b2, **f32) ** tf
     new_p, new_mu, new_nu = {}, {}, {}
     for k, p in params.items():
         g = grads[k]

@@ -23,6 +23,16 @@ live-pair count of the sort; the rect-drop count is summed on the device
 and read only at report steps, and the metrics stay tensors until a
 callback reads them.
 
+With `steps_per_call` W > 1 the loop is the reference's: wherever no host
+action (densify, opacity reset, report, checkpoint, the timestep's last
+step) falls strictly inside the next W steps, they run as one window
+(`make_train_scan` over the timestep's data stacked on the device,
+`stack_timestep_data`); single steps cover the boundaries and remainders.
+On the card a window replays one captured CUDA graph of the step
+(`step_graph.py`: no host read inside a window, one at its end); on the
+CPU it runs the same steps in a loop. Either way it computes what W single
+steps compute, from the same camera stream.
+
 Checkpoints follow the reference's schedule: with `checkpoint_dir` and
 `checkpoint_every`, the full state (parameters, Adam state, variables and
 the cursor {t, i}) is saved after every `checkpoint_every`-th global step,
@@ -39,10 +49,6 @@ seeded with `cfg.seed`) start from the seed, the camera permutation
 escalated K lives only in the run's local config. A mid-run resume is
 therefore not the uninterrupted run; a resume from the final step returns
 its state unchanged.
-
-The reference's on-device multi-step window (`steps_per_call`) only
-amortises TPU dispatch; here the same steps run one at a time, and the
-saved steps are the same.
 """
 
 from __future__ import annotations
@@ -58,6 +64,7 @@ import torch.nn.functional as F
 from dynamic3dgaussians_tpu_torch.device import DeviceLike, resolve_device
 from dynamic3dgaussians_tpu_torch.models import gaussians as G
 from dynamic3dgaussians_tpu_torch.ops import quat
+from dynamic3dgaussians_tpu_torch.ops.camera import Camera, stack_cameras
 from dynamic3dgaussians_tpu_torch.ops.knn import knn, knn_approx
 from dynamic3dgaussians_tpu_torch.ops.neighbor import (EdgeReduction,
                                                        build_edge_reduction,
@@ -69,6 +76,9 @@ from dynamic3dgaussians_tpu_torch.train import losses as L
 from dynamic3dgaussians_tpu_torch.train import optim
 from dynamic3dgaussians_tpu_torch.train.checkpoint import CheckpointManager
 from dynamic3dgaussians_tpu_torch.train.config import TrainConfig
+from dynamic3dgaussians_tpu_torch.train.step_graph import (StepWindow,
+                                                           batch_at,
+                                                           window_metrics)
 
 MAX_TILES_PER_GAUSSIAN = 64    # K escalation stops here
 
@@ -95,12 +105,16 @@ def resize_feature_map(feat: torch.Tensor, hw) -> torch.Tensor:
 
 def compute_loss(params: Dict, probe: torch.Tensor, batch: Dict,
                  variables: Dict, *, is_initial: bool, cfg: TrainConfig,
-                 rcfg: RasterConfig):
+                 rcfg: RasterConfig, pair_cap: Optional[int] = None,
+                 pair_stats: bool = False):
     """Loss over one camera datapoint.
 
-    batch: {camera, im (H, W, 3), seg (H, W, 3), cam_id (int), optional
-    gt_depth (H, W) and gt_feature (h, w, F)}. Returns (loss, aux) with the
-    radii for the densification statistics.
+    batch: {camera, im (H, W, 3), seg (H, W, 3), cam_id (an int, or a 0-d
+    int64 tensor on the parameters' device: a window's gathered batch, read
+    without a host read), optional gt_depth (H, W) and gt_feature (h, w,
+    F)}. Returns (loss, aux) with the radii for the densification
+    statistics, and with a pair_cap or pair_stats (`render`'s) the record
+    table's live pairs and overflow.
     """
     alive = variables["alive"]
     act = G.activated(params, alive)
@@ -112,11 +126,19 @@ def compute_loss(params: Dict, probe: torch.Tensor, batch: Dict,
     out = render(cam, act["means3d"], act["colors"], act["opacity"],
                  act["scales"], act["rotations"], extra_channels=extra,
                  mean2d_probe_ndc=probe, config=rcfg,
-                 method=cfg.raster.render_method(), device=cam.device)
+                 method=cfg.raster.render_method(), device=cam.device,
+                 pair_cap=pair_cap, pair_stats=pair_stats)
 
-    cam_id = int(batch["cam_id"])
-    im = L.apply_cam_correction(out.rgb, params["cam_m"][cam_id],
-                                params["cam_c"][cam_id])
+    cam_id = batch["cam_id"]
+    if isinstance(cam_id, torch.Tensor) and \
+            cam_id.device == params["cam_m"].device:
+        idx = cam_id.reshape(1).long()
+        cam_m = params["cam_m"].index_select(0, idx)[0]
+        cam_c = params["cam_c"].index_select(0, idx)[0]
+    else:
+        cam_m, cam_c = params["cam_m"][int(cam_id)], \
+            params["cam_c"][int(cam_id)]
+    im = L.apply_cam_correction(out.rgb, cam_m, cam_c)
     losses = {"im": L.image_loss(im, batch["im"]),
               "seg": L.image_loss(out.extra[..., :3], batch["seg"])}
     if "gt_depth" in batch:
@@ -138,11 +160,15 @@ def compute_loss(params: Dict, probe: torch.Tensor, batch: Dict,
            "n_dropped": (out.n_dropped_capacity + out.n_dropped_rect
                          + out.n_dropped_tile_overflow),
            "n_dropped_rect": out.n_dropped_rect}
+    if out.n_live_pairs is not None:
+        aux["n_live_pairs"] = out.n_live_pairs
+        aux["n_pair_overflow"] = out.n_pair_overflow
     return total, aux
 
 
 def loss_and_grads(params: Dict, variables: Dict, batch, *,
-                   is_initial: bool, cfg: TrainConfig, rcfg: RasterConfig):
+                   is_initial: bool, cfg: TrainConfig, rcfg: RasterConfig,
+                   pair_cap: Optional[int] = None, pair_stats: bool = False):
     """`compute_loss` over one datapoint, or over a list of them (the mean
     loss, the largest radii, the mean PSNR and the summed drop counts),
     and its gradients w.r.t. the parameters and the mean2d probe. Returns
@@ -153,7 +179,8 @@ def loss_and_grads(params: Dict, variables: Dict, batch, *,
     alive = variables["alive"]
     probe = torch.zeros((alive.shape[0], 2), dtype=torch.float32,
                         device=alive.device, requires_grad=True)
-    kw = dict(is_initial=is_initial, cfg=cfg, rcfg=rcfg)
+    kw = dict(is_initial=is_initial, cfg=cfg, rcfg=rcfg, pair_cap=pair_cap,
+              pair_stats=pair_stats)
     if isinstance(batch, dict):
         loss, aux = compute_loss(leaves, probe, batch, variables, **kw)
     else:
@@ -166,6 +193,10 @@ def loss_and_grads(params: Dict, variables: Dict, batch, *,
                "psnr": torch.stack([a["psnr"] for a in auxs]).mean(),
                "n_dropped": sum(a["n_dropped"] for a in auxs),
                "n_dropped_rect": sum(a["n_dropped_rect"] for a in auxs)}
+        if "n_live_pairs" in auxs[0]:
+            aux["n_live_pairs"] = torch.stack(
+                [a["n_live_pairs"] for a in auxs]).amax()
+            aux["n_pair_overflow"] = sum(a["n_pair_overflow"] for a in auxs)
         loss = torch.stack([p for p, _ in parts]).mean()
     grads = torch.autograd.grad(loss, [leaves[k] for k in keys] + [probe],
                                 allow_unused=True)
@@ -193,15 +224,22 @@ def make_train_step(cfg: TrainConfig, rcfg: RasterConfig):
     mean2d probe, the dead-row gradient mask, Adam, the densification
     statistics.
 
-    train_step(params, opt_state, variables, batch, lrs, is_initial) ->
-    (params, opt_state, variables, metrics); `batch` is one datapoint or a
-    list of them (cams_per_step > 1: mean loss, largest radii).
+    train_step(params, opt_state, variables, batch, lrs, is_initial,
+    pair_cap=None, pair_stats=False) -> (params, opt_state, variables,
+    metrics); `batch` is one datapoint or a list of them (cams_per_step > 1:
+    mean loss, largest radii). A pair_cap renders with a record table of
+    that fixed capacity (no host read, for a captured step); the metrics
+    then also hold the largest live-pair count and the overflow past it
+    (`n_live_pairs`, `n_pair_overflow`: a step with overflow is not the
+    eager step). pair_stats adds them to an eager step's metrics too (the
+    live count, and 0).
     """
 
-    def train_step(params, opt_state, variables, batch, lrs, is_initial):
+    def train_step(params, opt_state, variables, batch, lrs, is_initial,
+                   pair_cap=None, pair_stats=False):
         loss, aux, gp, gprobe = loss_and_grads(
             params, variables, batch, is_initial=is_initial, cfg=cfg,
-            rcfg=rcfg)
+            rcfg=rcfg, pair_cap=pair_cap, pair_stats=pair_stats)
         with torch.no_grad():
             gp = mask_dead_rows(gp, variables["alive"])
             new_params, new_opt = optim.step(
@@ -214,9 +252,81 @@ def make_train_step(cfg: TrainConfig, rcfg: RasterConfig):
                        "n_dropped_rect": aux["n_dropped_rect"],
                        **{f"loss_{k}": v.detach()
                           for k, v in aux["losses"].items()}}
+            if "n_live_pairs" in aux:
+                metrics["n_live_pairs"] = aux["n_live_pairs"]
+                metrics["n_pair_overflow"] = aux["n_pair_overflow"]
         return new_params, new_opt, new_vars, metrics
 
     return train_step
+
+
+def stack_timestep_data(data_t: List[Dict]) -> Dict:
+    """One timestep's camera datapoints stacked on their device, leading
+    axis the camera: cameras by `stack_cameras`, tensors by `torch.stack`,
+    numbers (cam_id) as an int64 / float32 tensor. The data of a window
+    (`make_train_scan`), which gathers each step's batch by index."""
+    first = data_t[0]
+    dev = first["camera"].device
+    out = {}
+    for key in first:
+        vals = [d[key] for d in data_t]
+        if isinstance(vals[0], Camera):
+            out[key] = stack_cameras(vals)
+        elif isinstance(vals[0], torch.Tensor):
+            out[key] = torch.stack(vals).to(dev)
+        else:
+            dtype = (torch.float32 if isinstance(vals[0], float)
+                     else torch.int64)
+            out[key] = torch.as_tensor(vals, dtype=dtype, device=dev)
+    return out
+
+
+def make_train_scan(cfg: TrainConfig, rcfg: RasterConfig, train_step=None,
+                    graph_factory=None, window: Optional[StepWindow] = None):
+    """The multi-step window: W train steps in one call.
+
+    train_scan(params, opt_state, variables, data_stack, cam_sel, lrs,
+    is_initial) -> (params, opt_state, variables, metrics), as the
+    reference's: data_stack from `stack_timestep_data`; cam_sel (W,) or
+    (W, k_cams) camera indices into its leading axis (a tensor or array);
+    metrics the last step's, except n_dropped / n_dropped_rect, summed over
+    the window (`window_metrics`).
+
+    On a CUDA state it is a `step_graph.StepWindow`: the step captured as a
+    CUDA graph and replayed W times (its `stats` count captures, replays
+    and redos). On the CPU the W steps run through `train_step` in a loop,
+    each batch gathered from the stack as on the card. `graph_factory`
+    (tests) runs the graph window with a stand-in for the CUDA graph.
+    `window`: the StepWindow of an earlier scan to go on with (`train`'s,
+    across a K escalation): it keeps its pair capacity and captures the new
+    step at its next window.
+    """
+    step = train_step or make_train_step(cfg, rcfg)
+    k_slots = rcfg.max_tiles_per_gaussian
+    if window is not None:
+        window.set_step(step, k_slots)
+
+    def train_scan(params, opt_state, variables, data_stack, cam_sel, lrs,
+                   is_initial):
+        dev = variables["alive"].device
+        if train_scan.window is None and dev.type == "cuda":
+            train_scan.window = StepWindow(step, k_slots)
+        if train_scan.window is not None:
+            return train_scan.window(params, opt_state, variables,
+                                     data_stack, cam_sel, lrs, is_initial)
+        sel = torch.as_tensor(cam_sel, dtype=torch.int64).to(dev)
+        ms = []
+        for r in range(sel.shape[0]):
+            params, opt_state, variables, m = step(
+                params, opt_state, variables, batch_at(data_stack, sel[r]),
+                lrs, is_initial)
+            ms.append(m)
+        return params, opt_state, variables, window_metrics(ms)
+
+    if window is None and graph_factory is not None:
+        window = StepWindow(step, k_slots, graph_factory)
+    train_scan.window = window
+    return train_scan
 
 
 def densify_with_growth(params, variables, opt_state, i: int,
@@ -367,8 +477,9 @@ def train(dataset, cfg: TrainConfig, pt_cld: np.ndarray,
     compute_loss, on `device`), or a callable t -> that list. pt_cld (N, 7)
     initial cloud [xyz, rgb, seg]; w2c_stack (C, 4, 4) extrinsics for the
     scene radius. Callbacks (all optional): on_step(t, i, metrics) at report
-    steps, on_iter(t, i, k) after every step and its host actions (k: the
-    emission slots per gaussian the step rendered with), on_densify(t, i,
+    steps, on_iter(t, i, k) after every step and its host actions (after a
+    window of steps_per_call steps, once, with its last i; k: the emission
+    slots per gaussian the step rendered with), on_densify(t, i,
     stats), on_grow_tiles(t, i, new_k), on_graph(t, timings) after the kNN
     graph, on_timestep(t, params, variables). checkpoint_dir /
     checkpoint_every: full-state checkpoints every `checkpoint_every`
@@ -392,6 +503,10 @@ def train(dataset, cfg: TrainConfig, pt_cld: np.ndarray,
     opt_state = optim.init(params)
     rcfg = raster_config(cfg)
     train_step = make_train_step(cfg, rcfg)
+    # one window object for the run: its graph carries over from one
+    # timestep to the next, its pair capacity also across K escalations
+    scan_w = max(1, int(cfg.steps_per_call))
+    train_scan = make_train_scan(cfg, rcfg, train_step)
 
     ckpt_mgr = None
     resume_t, resume_i, global_step = -1, -1, 0
@@ -433,28 +548,61 @@ def train(dataset, cfg: TrainConfig, pt_cld: np.ndarray,
         k_cams = max(1, min(cfg.cams_per_step, len(data_t)))
         # summed on the device, read at report steps only
         rect_drop_accum = torch.zeros((), dtype=torch.int32, device=dev)
+        use_scan = scan_w > 1 and len(data_t) > 0
+        if use_scan:
+            data_stack = stack_timestep_data(data_t)
 
-        def pick_cams():
-            """k_cams indices from the without-replacement permutation
-            stream (the reference's get_batch)."""
+        def pick_cams(n_steps):
+            """(n_steps, k_cams) indices from the without-replacement
+            permutation stream (the reference's get_batch)."""
             nonlocal todo
-            row = []
-            for _ in range(k_cams):
-                if not todo:
-                    todo = list(rng.permutation(len(data_t)))
-                row.append(int(todo.pop()))
-            return row
+            rows = []
+            for _ in range(n_steps):
+                row = []
+                for _ in range(k_cams):
+                    if not todo:
+                        todo = list(rng.permutation(len(data_t)))
+                    row.append(int(todo.pop()))
+                rows.append(row)
+            return np.asarray(rows, np.int64)
 
-        start_i = resume_i + 1 if t == resume_t else 0
-        for i in range(start_i, num_iters):
+        def next_mult(x, m):
+            return ((x + m - 1) // m) * m
+
+        def next_host_action(i):
+            """The smallest step index >= i after which the host acts."""
+            a = [num_iters - 1, next_mult(i, cfg.report_every)]
+            if is_initial and i <= cfg.densify_end:
+                d = next_mult(max(i, cfg.densify_start), cfg.densify_every)
+                if d <= cfg.densify_end:
+                    a.append(d)
+                a.append(next_mult(max(i, 1), cfg.opacity_reset_every))
+            if ckpt_mgr and checkpoint_every:
+                a.append(i + (-(global_step + 1)) % checkpoint_every)
+            return min(x for x in a if x >= i)
+
+        i = resume_i + 1 if t == resume_t else 0
+        while i < num_iters:
             k_step = cfg.raster.max_tiles_per_gaussian
-            picks = [data_t[c] for c in pick_cams()]
-            batch = picks[0] if k_cams == 1 else picks
-            params, opt_state, variables, metrics = train_step(
-                params, opt_state, variables, batch, lrs, is_initial)
+            if use_scan and next_host_action(i) - i + 1 >= scan_w:
+                sel = pick_cams(scan_w)
+                sel = torch.as_tensor(sel[:, 0] if k_cams == 1 else sel,
+                                      device=dev)
+                params, opt_state, variables, metrics = train_scan(
+                    params, opt_state, variables, data_stack, sel, lrs,
+                    is_initial)
+                steps_done = scan_w
+            else:
+                picks = [data_t[c] for c in pick_cams(1)[0]]
+                batch = picks[0] if k_cams == 1 else picks
+                params, opt_state, variables, metrics = train_step(
+                    params, opt_state, variables, batch, lrs, is_initial)
+                steps_done = 1
             if cfg.grow_tiles:
+                # a window's count is its steps' sum
                 rect_drop_accum = rect_drop_accum + metrics["n_dropped_rect"]
-            global_step += 1
+            global_step += steps_done
+            i += steps_done - 1             # the last step that ran
             if ckpt_mgr and checkpoint_every and \
                     global_step % checkpoint_every == 0:
                 # before this step's densify block, as the reference saves
@@ -487,6 +635,8 @@ def train(dataset, cfg: TrainConfig, pt_cld: np.ndarray,
                         pairs_per_gaussian=new_pairs))
                     rcfg = raster_config(cfg)
                     train_step = make_train_step(cfg, rcfg)
+                    train_scan = make_train_scan(cfg, rcfg, train_step,
+                                                 window=train_scan.window)
                     if "on_grow_tiles" in callbacks:
                         callbacks["on_grow_tiles"](t, i, new_k)
                 rect_drop_accum = torch.zeros_like(rect_drop_accum)
@@ -494,6 +644,7 @@ def train(dataset, cfg: TrainConfig, pt_cld: np.ndarray,
                     callbacks["on_step"](t, i, metrics)
             if "on_iter" in callbacks:
                 callbacks["on_iter"](t, i, k_step)
+            i += 1
 
         if is_initial:
             # alive rows to the front, then the fixed neighbour graph

@@ -68,12 +68,6 @@ from dynamic3dgaussians_tpu_torch.ops.sorted_raster import sorted_records
 from dynamic3dgaussians_tpu_torch.tools.bench_sol import smi_line
 from dynamic3dgaussians_tpu_torch.viz.render import render_frame, to_uint8
 
-SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
-              "cudaMemcpy", "cudaMemcpyAsync", "cudaEventSynchronize")
-LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
-                "cuLaunchKernelEx")
-
-
 def frame_params(scene):
     """One checkpointed timestep in the params.npz layout."""
     o = scene["opac"]
@@ -116,45 +110,6 @@ def stage_times(params, cam, dev):
     _, times["frame"] = timed(lambda: to_uint8(
         render_frame(params, cam, device=dev).rgb))
     return times
-
-
-def profile_calls(fn, n_calls):
-    """torch.profiler summary of n_calls calls of fn, per call."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n_calls):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.events()
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy_us, end = 0.0, -1.0
-    for s, e in spans:                  # union of the device intervals
-        if e > end:
-            busy_us += e - max(s, end)
-            end = e
-    window_us = (spans[-1][1] - spans[0][0]) if spans else 0.0
-    by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + (
-            e.time_range.end - e.time_range.start)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    host = [e.name for e in events if e.device_type != DeviceType.CUDA]
-    return dict(
-        calls=n_calls, wall_ms_per_call=wall_ms / n_calls,
-        device_events=len(kernels),
-        device_busy_ms_per_call=busy_us / 1e3 / n_calls,
-        device_window_ms_per_call=window_us / 1e3 / n_calls,
-        device_idle_share=(1.0 - busy_us / window_us) if window_us else None,
-        kernels_per_call=sum(host.count(n) for n in LAUNCH_CALLS) / n_calls,
-        syncs_per_call=sum(host.count(n) for n in SYNC_CALLS) / n_calls,
-        top_kernels_ms_per_call=[
-            [name[:90], t / 1e3 / n_calls] for name, t in top])
 
 
 def train_setup(dev):
@@ -278,7 +233,7 @@ def main(argv=None) -> int:
     stages["sort_and_table"] = stages["records"] - stages["emit"]
     print(json.dumps(dict(phase="stages", ms=stages, reps=args.reps,
                           card=smi)), flush=True)
-    print(json.dumps(dict(phase="profile", card=smi, **profile_calls(
+    print(json.dumps(dict(phase="profile", card=smi, **cs.profile_calls(
         lambda: to_uint8(render_frame(params, cam, device=dev).rgb),
         args.frames))), flush=True)
 
@@ -297,7 +252,7 @@ def main(argv=None) -> int:
         _, step_fn = train_stage_times(st, batch, k_slots, dev, is_initial)
         print(json.dumps(dict(phase="train_profile", k_slots=k_slots,
                               t="0" if is_initial else ">0", card=smi,
-                              **profile_calls(step_fn, args.steps))),
+                              **cs.profile_calls(step_fn, args.steps))),
               flush=True)
     return 0
 

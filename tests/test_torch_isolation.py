@@ -78,6 +78,7 @@ def test_port_imports_no_jax():
                 "data.tracks", "data.init_clouds", "data.tools",
                 "utils.clip_utils", "parallel.mesh", "parallel.collectives",
                 "parallel.camera_dp", "parallel.tile_shard",
+                "train.step_graph", "ops.cuda.launches",
                 "parallel.gaussian_shard", "tools.dynamic_run",
                 "tools.tracking_eval", "tools.scale_run",
                 "tools.roundtrip_demo"):
