@@ -18,15 +18,7 @@ import torch
 from dynamic3dgaussians_tpu_torch.device import DeviceLike, resolve_device
 from dynamic3dgaussians_tpu_torch.ops.rasterize import RasterConfig
 
-# Reference settings that exist only for the TPU. Each maps to the values
-# that leave the numerics of the default path unchanged; anything else is
-# refused rather than silently rendered differently.
-_TPU_ONLY = {
-    "pack_records": (False,),                   # f16 transport of records
-    "power_impl": ("vpu", "mxu"),               # mxu_fused: log2-op rows
-    "kernel_precision": ("highest", "high"),    # default: bf16 matmuls
-}
-_SEMANTIC = tuple(f.name for f in dataclasses.fields(RasterConfig))
+_FIELDS = tuple(f.name for f in dataclasses.fields(RasterConfig))
 
 
 def params_from_jax(params: Dict[str, np.ndarray],
@@ -51,14 +43,11 @@ def variables_from_jax(variables: Dict[str, np.ndarray],
     a timestep t > 0) -> tensors on `device` (default `cuda`); floating
     arrays become float32, booleans stay bool. `prev_offset` goes from the
     reference's feature-major (3, K, cap) to the port's (cap, K, 3). The
-    TPU's windowed neighbour fetch (`win_*`) has no counterpart and is
-    refused."""
-    win = sorted(k for k in variables if k.startswith("win_"))
-    if win:
-        raise ValueError(f"the windowed neighbour fetch {win} is not "
-                         f"ported; build the state with neighbor_window "
-                         f"off")
-    out = params_from_jax(variables, device)
+    plan of the TPU's windowed neighbour fetch (`win_*`, neighbor_window)
+    is left out: the port fetches the same neighbours through its prefix
+    gather (`neighbor_indices`, `edge_rank`, `edge_row_ptr`)."""
+    out = params_from_jax({k: v for k, v in variables.items()
+                           if not k.startswith("win_")}, device)
     if "prev_offset" in out:
         out["prev_offset"] = out["prev_offset"].permute(2, 1, 0).contiguous()
     return out
@@ -109,18 +98,6 @@ def gaussian_model_from_jax(state: Dict, device: DeviceLike = None):
 
 
 def raster_config_from_jax(cfg) -> RasterConfig:
-    """Port RasterConfig from the reference's semantic fields.
-
-    Raises ValueError when a TPU-only field is set to a value that changes
-    the numerics (pack_records=True, power_impl="mxu_fused",
-    kernel_precision="default"); the other TPU-only fields (scan_impl,
-    tile_batch, unsort_impl) only change how the TPU schedules the same
-    result and are ignored.
-    """
-    for name, ok in _TPU_ONLY.items():
-        val = getattr(cfg, name, ok[0])
-        if val not in ok:
-            raise ValueError(f"RasterConfig.{name}={val!r} changes the "
-                             f"render's numerics and has no counterpart in "
-                             f"the port (allowed: {ok})")
-    return RasterConfig(**{name: getattr(cfg, name) for name in _SEMANTIC})
+    """The port's RasterConfig with every field of the reference's, copied
+    as it is (the two have the same fields)."""
+    return RasterConfig(**{name: getattr(cfg, name) for name in _FIELDS})

@@ -11,10 +11,13 @@
 //
 // Record rows (feature-major table, `chunk` columns staged in shared
 // memory): 0 x, 1 y, 2 conic a, 3 conic b, 4 conic c (a, b, c pre-scaled by
-// log2 e, so transmittance runs in base 2), 5 opacity.
+// log2 e, so transmittance runs in base 2), 5 opacity, and under the fused
+// variant (power_impl="mxu_fused") 6 r6 = log2(max(op, 2^-100)), 7 r7 =
+// min(r6, log2 0.99), filled where the table is made (sorted_raster.py).
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace d3g {
@@ -24,6 +27,8 @@ constexpr float ALPHA_EPS = 1.0f / 255.0f;
 constexpr float ALPHA_MAX = 0.99f;
 constexpr float LOG2_T_DEAD = -13.287712379549449f;  // log2(1e-4)
 constexpr float LN2 = 0.6931471805599453f;
+// the fused variant's gate, log2(ALPHA_EPS), compared in log2-alpha space
+constexpr float LOG2_ALPHA_EPS = -7.994353436858858f;
 
 struct AlphaCell {
   float dx, dy;  // record center minus pixel center
@@ -33,24 +38,48 @@ struct AlphaCell {
   float alpha;   // min(ALPHA_MAX, raw); the cell is live iff alpha >= EPS
 };
 
+// p0 of record j (column of the staged chunk `rec`) at pixel (px, py),
+// with the record's offsets dx, dy from the pixel.
+__device__ __forceinline__ float power_p0(const float* rec, int chunk, int j,
+                                          float px, float py, float& dx,
+                                          float& dy) {
+  const float ca = rec[2 * chunk + j];
+  const float cb = rec[3 * chunk + j];
+  const float cc = rec[4 * chunk + j];
+  dx = __fsub_rn(rec[0 * chunk + j], px);
+  dy = __fsub_rn(rec[1 * chunk + j], py);
+  const float quad = __fadd_rn(__fmul_rn(__fmul_rn(ca, dx), dx),
+                               __fmul_rn(__fmul_rn(cc, dy), dy));
+  return __fsub_rn(__fmul_rn(-0.5f, quad), __fmul_rn(__fmul_rn(cb, dx), dy));
+}
+
 // Alpha of record j (column of the staged chunk `rec`) at pixel (px, py).
 __device__ __forceinline__ AlphaCell alpha_cell(const float* rec, int chunk,
                                                 int j, float px, float py) {
   AlphaCell c;
-  const float ca = rec[2 * chunk + j];
-  const float cb = rec[3 * chunk + j];
-  const float cc = rec[4 * chunk + j];
   const float op = rec[5 * chunk + j];
-  c.dx = __fsub_rn(rec[0 * chunk + j], px);
-  c.dy = __fsub_rn(rec[1 * chunk + j], py);
-  const float quad = __fadd_rn(__fmul_rn(__fmul_rn(ca, c.dx), c.dx),
-                               __fmul_rn(__fmul_rn(cc, c.dy), c.dy));
-  c.p0 = __fsub_rn(__fmul_rn(-0.5f, quad),
-                   __fmul_rn(__fmul_rn(cb, c.dx), c.dy));
+  c.p0 = power_p0(rec, chunk, j, px, py, c.dx, c.dy);
   c.e = exp2f(fminf(c.p0, 0.0f));
   c.raw = __fmul_rn(op, c.e);
   c.alpha = fminf(ALPHA_MAX, c.raw);
   return c;
+}
+
+// The fused variant's log2 alpha of record j at pixel (px, py), the
+// reference's chunk_logalpha_fused: m = min(p0 + r6, r7), p0 unclamped (r7
+// <= r6 caps it); the cell is live iff m >= LOG2_ALPHA_EPS, and then alpha
+// = 2^m.
+__device__ __forceinline__ float fused_log_alpha(const float* rec, int chunk,
+                                                 int j, float px, float py) {
+  float dx, dy;
+  const float p0 = power_p0(rec, chunk, j, px, py, dx, dy);
+  return fminf(__fadd_rn(p0, rec[6 * chunk + j]), rec[7 * chunk + j]);
+}
+
+// x rounded to bf16 (nearest even) and back: an operand of the TPU's single
+// bf16 pass of a matrix product (kernel_precision="default").
+__device__ __forceinline__ float bf16_rne(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 __device__ __forceinline__ bool alpha_live(const AlphaCell& c) {
@@ -78,22 +107,25 @@ constexpr unsigned FULL_MASK = 0xffffffffu;
 // for a positive definite conic), det is taken from below, and each extent
 // gets 1e-4 relative and 0.01 px. op < EPS is dead at every pixel (raw = op
 // * e with e <= 1): an empty box. A conic that is not positive definite, or
-// anything NaN or infinite, gets an unbounded box (never culled). Mirrored
-// in Python by ops/cuda/raster_fwd.py::footprint_boxes.
+// anything NaN or infinite, gets an unbounded box (never culled). Under the
+// fused variant the gate is m = min(p0 + r6, r7) >= log2(EPS) (the add
+// rounds by at most 2.4e-7 at |m| < 8): L = r6 - log2(EPS), within 2.4e-7
+// (the 1e-5 margin covers both), and r6 < log2(EPS) is dead at every pixel,
+// since m <= r7 <= r6. Mirrored in Python by
+// ops/cuda/raster_fwd.py::footprint_boxes.
 struct Box {
   float x_lo, x_hi, y_lo, y_hi;
 };
 
-__device__ __forceinline__ Box record_box(float x, float y, float a, float b,
-                                          float c, float op) {
+// The box of the ellipse Q <= l2 (l2 = 2 L) with its margins.
+__device__ __forceinline__ Box box_of(float x, float y, float a, float b,
+                                      float c, float l2) {
   const float inf = __int_as_float(0x7f800000);
-  if (op < ALPHA_EPS) return Box{inf, -inf, inf, -inf};
   const float ac = __fmul_rn(a, c);
   // det from below: a c (1 - 2^-20) - b^2 (1 + 2^-20)
   const float det =
       __fsub_rn(__fmul_rn(ac, 0.99999904632568359375f),
                 __fmul_rn(__fmul_rn(b, b), 1.00000095367431640625f));
-  const float l2 = __fmul_rn(2.0f, log2f(__fdiv_rn(op, ALPHA_EPS)));
   // (2 L + 1e-5)(1 + 1e-5 + 2^-18 a c / det)
   const float q = __fmul_rn(
       __fadd_rn(l2, 1e-5f),
@@ -107,6 +139,22 @@ __device__ __forceinline__ Box record_box(float x, float y, float a, float b,
       __fmul_rn(__fsqrt_rn(__fdiv_rn(__fmul_rn(q, a), det)), 1.0001f), 0.01f);
   return Box{__fsub_rn(x, rx), __fadd_rn(x, rx), __fsub_rn(y, ry),
              __fadd_rn(y, ry)};
+}
+
+__device__ __forceinline__ Box record_box(float x, float y, float a, float b,
+                                          float c, float op) {
+  const float inf = __int_as_float(0x7f800000);
+  if (op < ALPHA_EPS) return Box{inf, -inf, inf, -inf};
+  return box_of(x, y, a, b, c,
+                __fmul_rn(2.0f, log2f(__fdiv_rn(op, ALPHA_EPS))));
+}
+
+__device__ __forceinline__ Box record_box_fused(float x, float y, float a,
+                                                float b, float c, float r6) {
+  const float inf = __int_as_float(0x7f800000);
+  if (r6 < LOG2_ALPHA_EPS) return Box{inf, -inf, inf, -inf};
+  return box_of(x, y, a, b, c,
+                __fmul_rn(2.0f, __fsub_rn(r6, LOG2_ALPHA_EPS)));
 }
 
 // A warp's pixel rectangle [x0, x1] x [y0, y1] (pixel centres).
@@ -134,12 +182,19 @@ __device__ __forceinline__ Box load_box(const float* box, int chunk, int j) {
 }
 
 // The box of record `j` of the table column block starting at `src`, read
-// from device memory (the geometry rows of the record table).
+// from device memory (the geometry rows of the record table); FUSED: the
+// fused variant's gate, from row 6.
+template <bool FUSED = false>
 __device__ __forceinline__ Box table_box(const float* __restrict__ src,
                                          int64_t ne_pad, int j) {
-  return record_box(src[j], src[ne_pad + j], src[2 * ne_pad + j],
-                    src[3 * ne_pad + j], src[4 * ne_pad + j],
-                    src[5 * ne_pad + j]);
+  if constexpr (FUSED)
+    return record_box_fused(src[j], src[ne_pad + j], src[2 * ne_pad + j],
+                            src[3 * ne_pad + j], src[4 * ne_pad + j],
+                            src[6 * ne_pad + j]);
+  else
+    return record_box(src[j], src[ne_pad + j], src[2 * ne_pad + j],
+                      src[3 * ne_pad + j], src[4 * ne_pad + j],
+                      src[5 * ne_pad + j]);
 }
 
 // Tile-local pixel (lx, ly) of thread `tid`. When the tile splits into 8x4
@@ -223,6 +278,39 @@ __device__ __forceinline__ void stage_chunk(const Stager& s, float* dst,
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Rounds to bf16 (nearest even), in place, the elements of rows [ROW_LO,
+// ROWS) of a staged chunk that this thread copied (`stage_chunk`'s
+// pattern): called after cp_async_wait_all, before the barrier that
+// publishes the chunk, so each value is rounded once per chunk and not in
+// every cell that reads it (the BF16 variants' value rows).
+template <int ROWS, int ROW_LO>
+__device__ __forceinline__ void round_staged_bf16(const Stager& s, float* dst,
+                                                  int chunk) {
+  int r = s.r0, v = s.v0;
+  while (r < ROWS) {
+    if (r >= ROW_LO) {
+      float* d = dst + r * chunk;
+      if (s.vec) {
+        float4* q = reinterpret_cast<float4*>(d + 4 * v);
+        float4 x = *q;
+        x.x = bf16_rne(x.x);
+        x.y = bf16_rne(x.y);
+        x.z = bf16_rne(x.z);
+        x.w = bf16_rne(x.w);
+        *q = x;
+      } else {
+        d[v] = bf16_rne(d[v]);
+      }
+    }
+    r += s.r_step;
+    v += s.v_step;
+    if (v >= s.per_row) {
+      v -= s.per_row;
+      ++r;
+    }
+  }
 }
 
 }  // namespace d3g

@@ -1,8 +1,11 @@
 // Backward tile compositing kernel (K2) for Hopper (sm_90a).
 //
 // Replaces dynamic3dgaussians_tpu/ops/pallas/raster_bwd.py
-// ::pallas_composite_tiles_bwd (TPU Pallas kernel `_bwd_kernel`, default
-// power_impl="vpu" semantics), with the same interface: the forward's
+// ::pallas_composite_tiles_bwd (TPU Pallas kernel `_bwd_kernel`; its "vpu"
+// and "mxu" power paths compute the same function, and under
+// power_impl="mxu_fused" the reference runs that body on the fused
+// forward's log_t and n_active, as this kernel does), with the same
+// interface: the forward's
 // merged record table rec (8 + CV, ne_pad) and tile segments
 // [start, start + count), the forward's outputs n_active (T,) and final
 // log2 transmittance log_t (T, P), and the cotangent d_raw (T, P, CV) of
@@ -50,6 +53,13 @@
 // On an H100 80GB HBM3 at 700 W (chip_smoke.py, bench view, the wrapper's
 // zero fill of d_out included): 0.315 ms at CV 8, 0.675 ms at CV 40.
 // PERF.md has the measured worth of each step.
+//
+// A compile-time variant, BF16 (kernel_precision="default"): the TPU's
+// single bf16 pass of the two value products, d_acc and the value row in
+// dw = d_acc . vals, and d_acc and w in the value rows' terms d_acc * w,
+// each rounded to bf16 (nearest even); the sums stay float32. d_acc is
+// rounded as it is loaded, the staged value rows once per chunk by the
+// threads that copied them (alpha.cuh round_staged_bf16), w per cell.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -136,7 +146,7 @@ __global__ void tile_order_kernel(const int* __restrict__ starts,
   if (u < num_tiles) order[rank] = u;
 }
 
-template <int CV>
+template <int CV, bool BF16>
 __global__ void raster_bwd_kernel(
     const float* __restrict__ rec, int64_t ne_pad,
     const int* __restrict__ starts, const int* __restrict__ counts,
@@ -159,7 +169,8 @@ __global__ void raster_bwd_kernel(
   float* part = boxes + 2 * 4 * chunk;         // nwarps x WORD x GP
   unsigned* touched = reinterpret_cast<unsigned*>(part + nwarps * WORD * GP);
 
-  if (runs != nullptr && blockIdx.x == 0 && tid == 0) atomicAdd(runs, 1ull);
+  if (runs != nullptr && blockIdx.x == 0 && tid == 0)
+    atomicAdd(runs + (BF16 ? 2 : 0), 1ull);
   const int start = starts[tile];
   const int count = counts[tile];
   const int nact = n_active[tile];
@@ -177,7 +188,10 @@ __global__ void raster_bwd_kernel(
   const int64_t pix = (int64_t)tile * nthreads + ly * tile_w + lx;
   float dacc[CV];
 #pragma unroll
-  for (int c = 0; c < CV; ++c) dacc[c] = d_raw[pix * CV + c];
+  for (int c = 0; c < CV; ++c) {
+    dacc[c] = d_raw[pix * CV + c];
+    if constexpr (BF16) dacc[c] = d3g::bf16_rne(dacc[c]);
+  }
   float logt = log_t[pix];
   float suffix = 0.0f;
 
@@ -194,6 +208,9 @@ __global__ void raster_bwd_kernel(
 
   for (int k = nact - 1; k >= 0; --k) {
     d3g::cp_async_wait_all();
+    if constexpr (BF16)  // the value rows of chunk k, rounded once
+      d3g::round_staged_bf16<R, GEOM_ROWS>(st, recs + (k & 1) * R * chunk,
+                                           chunk);
     __syncthreads();  // chunk k and its boxes are in; chunk k + 1 is done
     const int64_t col = (int64_t)base + (int64_t)k * chunk;
     const bool next = k > 0;
@@ -254,11 +271,12 @@ __global__ void raster_bwd_kernel(
           const float s = warp_sum8(g, lane);
           if ((lane & 3) == 0 && t < 6) pj[t] = s;
         }
+        const float wv = BF16 ? d3g::bf16_rne(w) : w;
 #pragma unroll
         for (int c0 = 0; c0 < CV; c0 += 8) {
           float v[8];
 #pragma unroll
-          for (int i = 0; i < 8; ++i) v[i] = dacc[c0 + i] * w;
+          for (int i = 0; i < 8; ++i) v[i] = dacc[c0 + i] * wv;
           const float s = warp_sum8(v, lane);
           if ((lane & 3) == 0) pj[6 + c0 + t] = s;
         }
@@ -299,7 +317,7 @@ __global__ void raster_bwd_kernel(
   }
 }
 
-template <int CV>
+template <int CV, bool BF16>
 cudaError_t launch(const float* rec, int64_t ne_pad, const int* starts,
                    const int* counts, const int* n_active, const float* log_t,
                    const float* d_raw, int num_tiles, int grid_w, int tile_h,
@@ -318,10 +336,10 @@ cudaError_t launch(const float* rec, int64_t ne_pad, const int* starts,
                        (size_t)nwarps * WORD * (6 + CV + 1)) +
       sizeof(unsigned) * nwarps;
   err = cudaFuncSetAttribute(
-      raster_bwd_kernel<CV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      raster_bwd_kernel<CV, BF16>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  raster_bwd_kernel<CV><<<num_tiles, nthreads, smem, stream>>>(
+  raster_bwd_kernel<CV, BF16><<<num_tiles, nthreads, smem, stream>>>(
       rec, ne_pad, starts, counts, n_active, log_t, d_raw, grid_w, tile_h,
       tile_w, chunk, order, d_out, runs);
   return cudaGetLastError();
@@ -333,27 +351,35 @@ cudaError_t launch(const float* rec, int64_t ne_pad, const int* starts,
 // count, or a tile whose pixel count is not a multiple of 32 in [32, 1024],
 // returns cudaErrorInvalidValue without launching; so does a configuration
 // whose shared memory exceeds the card's (large tiles at large CV).
-// `order` is scratch of num_tiles ints (the tiles heaviest first).
-// `runs`, when not null, is a device counter to which each run of the
-// kernel adds one (as in raster_fwd.cu).
+// `bf16` (0 or 1) picks the BF16 variant. `order` is scratch of num_tiles
+// ints (the tiles heaviest first). `runs`, when not null, is an array of 4
+// device counters, indexed as raster_fwd.cu's (FUSED + 2 BF16; this kernel
+// has no FUSED): each run of the kernel adds one to its instantiation's.
 extern "C" int d3g_raster_bwd(const float* rec, long long ne_pad, int n_rows,
                               const int* starts, const int* counts,
                               const int* n_active, const float* log_t,
                               const float* d_raw, int num_tiles, int grid_w,
-                              int tile_h, int tile_w, int chunk, int* order,
-                              float* d_out, unsigned long long* runs,
-                              void* stream) {
+                              int tile_h, int tile_w, int chunk, int bf16,
+                              int* order, float* d_out,
+                              unsigned long long* runs, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nthreads = tile_h * tile_w;
   if (nthreads < 32 || nthreads > 1024 || nthreads % 32)
     return (int)cudaErrorInvalidValue;
   if (num_tiles == 0) return (int)cudaSuccess;
+  if (bf16 != 0 && bf16 != 1) return (int)cudaErrorInvalidValue;
   switch (n_rows - GEOM_ROWS) {
 #define D3G_CASE(CV)                                                       \
   case CV:                                                                 \
-    return (int)launch<CV>(rec, ne_pad, starts, counts, n_active, log_t,   \
-                           d_raw, num_tiles, grid_w, tile_h, tile_w, chunk, \
-                           order, d_out, runs, s);
+    return (int)(bf16 ? launch<CV, true>(rec, ne_pad, starts, counts,      \
+                                         n_active, log_t, d_raw, num_tiles, \
+                                         grid_w, tile_h, tile_w, chunk,     \
+                                         order, d_out, runs, s)             \
+                      : launch<CV, false>(rec, ne_pad, starts, counts,     \
+                                          n_active, log_t, d_raw,          \
+                                          num_tiles, grid_w, tile_h,       \
+                                          tile_w, chunk, order, d_out,     \
+                                          runs, s));
     D3G_CASE(8)
     D3G_CASE(16)
     D3G_CASE(24)

@@ -2,11 +2,13 @@
 PyTorch version.
 
 Port of `dynamic3dgaussians_tpu/ops/pallas/raster_bwd.py::
-pallas_composite_tiles_bwd`, default `power_impl="vpu"` semantics (the mxu
-paths, `_power_moments` and `scan_impl` are TPU workarounds). The kernel is
-`csrc/raster_bwd.cu` (one thread block per tile, one thread per pixel; its
-source note says what bounds it). Both functions take the reference's
-interface unchanged:
+pallas_composite_tiles_bwd` (its "vpu" and "mxu" power paths compute the
+same function; `_power_moments` and `scan_impl` schedule it on the TPU).
+The reference's backward has no fused variant: under power_impl=
+"mxu_fused" it runs this body on the fused forward's log_t and n_active,
+as here. The kernel is `csrc/raster_bwd.cu` (one thread block per tile,
+one thread per pixel; its source note says what bounds it). Both
+functions take the reference's interface unchanged:
 
   rec_t, tile_starts, tile_counts   the forward kernel's inputs
   n_active  (T,) int32 chunks the forward processed per tile
@@ -27,6 +29,11 @@ pixel's row of d_raw and raw = opacity * 2^power before the 0.99 clamp:
   g = d_alpha where the cell passed the gate and raw <= 0.99, else 0,
   d_power = g * raw * ln 2 where power < 0, then the chain rule to x, y
   and the conic, and d_opacity = sum_p g * 2^power.
+
+precision="default" (the BF16 variant of the kernel) is the TPU's single
+bf16 MXU pass of the two value products, dw = d_acc . vals and d_vals =
+sum_p d_acc * w: each operand rounded to bf16 (nearest even), the products
+exact in float32, the sums float32.
 """
 
 from __future__ import annotations
@@ -39,7 +46,8 @@ from dynamic3dgaussians_tpu_torch.device import no_tf32
 from dynamic3dgaussians_tpu_torch.ops.cuda import launches
 from dynamic3dgaussians_tpu_torch.ops.compositing import ALPHA_EPS, ALPHA_MAX
 from dynamic3dgaussians_tpu_torch.ops.cuda.raster_fwd import (
-    GEOM_ROWS, KERNEL_CV, _check_args, tile_pixel_coords)
+    GEOM_ROWS, KERNEL_CV, PRECISIONS, _check_args, check_shared,
+    round_bf16_rne, tile_pixel_coords)
 
 LN2 = math.log(2.0)
 
@@ -62,18 +70,41 @@ def _check_bwd_args(rec_t, tile_starts, tile_counts, n_active, log_t, d_raw,
     return n_val
 
 
+def _bf16(precision: str) -> bool:
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got "
+                         f"{precision!r}")
+    return precision == "default"
+
+
+def bwd_shared_bytes(n_val: int, chunk: int, tile_h: int, tile_w: int) -> int:
+    """Dynamic shared memory of one K2 block: two staged chunks of the
+    table, their footprint boxes, each warp's partials of 32 records (6 +
+    CV terms, stride 7 + CV) and the warps' touched masks."""
+    nwarps = tile_h * tile_w // 32
+    return (4 * (2 * (GEOM_ROWS + n_val) * chunk + 2 * 4 * chunk
+                 + nwarps * 32 * (6 + n_val + 1)) + 4 * nwarps)
+
+
 def composite_tiles_bwd_torch(rec_t: torch.Tensor, tile_starts: torch.Tensor,
                               tile_counts: torch.Tensor,
                               n_active: torch.Tensor, log_t: torch.Tensor,
                               d_raw: torch.Tensor, *, num_tiles: int,
                               grid_w: int, tile_h: int, tile_w: int,
-                              chunk: int = 128) -> torch.Tensor:
+                              chunk: int = 128,
+                              precision: str = "highest",
+                              round_w=round_bf16_rne) -> torch.Tensor:
     """Plain PyTorch version of the kernel: every tile at once, one loop
     step per chunk index from the last active one down, with the reference
     kernel's order of operations (in-chunk prefix sums of log2(1 - alpha)
-    and of dw * w)."""
+    and of dw * w), and the kernel's BF16 variant. `round_w` is BF16's
+    rounding of w in the value rows' terms, as in
+    `raster_fwd.composite_tiles_torch`."""
     n_val = _check_bwd_args(rec_t, tile_starts, tile_counts, n_active, log_t,
                             d_raw, num_tiles, tile_h, tile_w, chunk)
+    bf16 = _bf16(precision)
+    if bf16:
+        d_raw = round_bf16_rne(d_raw)
     dev = rec_t.device
     ne_pad = rec_t.shape[1]
     d_out = torch.zeros((GEOM_ROWS + n_val, ne_pad), dtype=torch.float32,
@@ -118,8 +149,12 @@ def composite_tiles_bwd_torch(rec_t: torch.Tensor, tile_starts: torch.Tensor,
         w = alpha * t_exc
         vals = g[GEOM_ROWS:].permute(1, 0, 2)          # (T, CV, G)
         with no_tf32():
-            dw = torch.bmm(d_raw, vals)                # (T, P, G)
-            d_vals = torch.bmm(d_raw.transpose(1, 2), w)   # (T, CV, G)
+            if bf16:
+                dw = torch.bmm(d_raw, round_bf16_rne(vals))
+                d_vals = torch.bmm(d_raw.transpose(1, 2), round_w(w))
+            else:
+                dw = torch.bmm(d_raw, vals)            # (T, P, G)
+                d_vals = torch.bmm(d_raw.transpose(1, 2), w)   # (T, CV, G)
         u = dw * w
         u_incl = torch.cumsum(u, dim=-1)
         u_tot = u_incl[..., -1]
@@ -149,22 +184,26 @@ def composite_tiles_bwd(rec_t: torch.Tensor, tile_starts: torch.Tensor,
                         tile_counts: torch.Tensor, n_active: torch.Tensor,
                         log_t: torch.Tensor, d_raw: torch.Tensor, *,
                         num_tiles: int, grid_w: int, tile_h: int,
-                        tile_w: int, chunk: int = 128) -> torch.Tensor:
+                        tile_w: int, chunk: int = 128,
+                        precision: str = "highest") -> torch.Tensor:
     """Run the backward tile kernel on a CUDA tensor.
 
     A CPU tensor takes the plain version (`composite_tiles_bwd_torch`); a
-    CUDA tensor launches `csrc/raster_bwd.cu` or raises. Each launch adds
-    one to `composite_tiles_bwd.launches`; each run of the kernel, eager or
-    replayed from a CUDA graph, adds one to its device counter
-    (`launches.py`).
+    CUDA tensor launches the `csrc/raster_bwd.cu` instantiation of its
+    precision or raises. Each launch adds one to
+    `composite_tiles_bwd.launches` and to its variant's entry of
+    `composite_tiles_bwd.launches_by_variant`; each run of the kernel,
+    eager or replayed from a CUDA graph, adds one to its instantiation's
+    device counter (`launches.py`).
     """
     n_val = _check_bwd_args(rec_t, tile_starts, tile_counts, n_active, log_t,
                             d_raw, num_tiles, tile_h, tile_w, chunk)
+    bf16 = _bf16(precision)
     if rec_t.device.type == "cpu":
         return composite_tiles_bwd_torch(
             rec_t, tile_starts, tile_counts, n_active, log_t, d_raw,
             num_tiles=num_tiles, grid_w=grid_w, tile_h=tile_h,
-            tile_w=tile_w, chunk=chunk)
+            tile_w=tile_w, chunk=chunk, precision=precision)
     if rec_t.device.type != "cuda":
         raise ValueError(f"composite_tiles_bwd runs on cuda or cpu tensors, "
                          f"got {rec_t.device}")
@@ -174,6 +213,8 @@ def composite_tiles_bwd(rec_t: torch.Tensor, tile_starts: torch.Tensor,
     if (tile_h * tile_w) % 32:
         raise ValueError(f"the CUDA backward kernel needs tile_h*tile_w to "
                          f"be a multiple of 32, got {tile_h * tile_w}")
+    check_shared("the backward kernel",
+                 bwd_shared_bytes(n_val, chunk, tile_h, tile_w), n_val, chunk)
     for name, t in (("rec_t", rec_t), ("tile_starts", tile_starts),
                     ("tile_counts", tile_counts), ("n_active", n_active),
                     ("log_t", log_t), ("d_raw", d_raw)):
@@ -190,13 +231,16 @@ def composite_tiles_bwd(rec_t: torch.Tensor, tile_starts: torch.Tensor,
             rec_t.data_ptr(), rec_t.shape[1], rec_t.shape[0],
             tile_starts.data_ptr(), tile_counts.data_ptr(),
             n_active.data_ptr(), log_t.data_ptr(), d_raw.data_ptr(),
-            num_tiles, grid_w, tile_h, tile_w, chunk, order.data_ptr(),
+            num_tiles, grid_w, tile_h, tile_w, chunk, int(bf16),
+            order.data_ptr(),
             d_out.data_ptr(),
             launches.counter(composite_tiles_bwd, rec_t.device).data_ptr(),
             stream)
     _build.check(lib, err, "raster_bwd kernel launch")
-    composite_tiles_bwd.launches += 1
+    launches.count_launch(composite_tiles_bwd,
+                          launches.variant_index(False, bf16))
     return d_out
 
 
 composite_tiles_bwd.launches = 0
+composite_tiles_bwd.launches_by_variant = {}

@@ -14,8 +14,9 @@ Port of `dynamic3dgaussians_tpu/ops/neighbor.py`:
 
 Layout: row-major, (cap, K, F) records and (cap, K) components; the
 reference keeps them feature-major (F, K, cap) only for the TPU's lanes.
-The reference's `WindowPlan` (a TPU matrix-unit fetch, slower there too) is
-not ported.
+The reference's `WindowPlan` (`neighbor_window=True`: a TPU matrix-unit
+fetch of the same neighbours, exact and slower there too) has no
+counterpart: the port runs `neighbor_lookup` for it, the same values.
 """
 
 from __future__ import annotations

@@ -26,6 +26,13 @@ render's affine key, so near-equal depths may composite in another order.
 x, y and the view depth ride in float32, the depth exact and fresh (not a
 dequantized key).
 
+Of the config, K1 takes kernel_precision and power_impl, as the
+reference's does. Under power_impl="mxu_fused" the table's rows 6 and 7
+are filled from the f16 opacity row (`sorted_raster.fused_opacity_rows`),
+as the exact render's are. The reference leaves them at zero there, so its
+cached frames read log2 opacity 0: opacity 1 and the clamp at alpha 1, not
+0.99. That is a fault of the reference, which the port does not repeat.
+
 Differences in the mechanics, not in the result: the reference sorts all
 K*N emission slots and keeps a K*N-long gather index whose sentinel slots
 sort past the last segment; the cache here keeps only the live pairs'
@@ -44,14 +51,14 @@ import torch
 from dynamic3dgaussians_tpu_torch.device import DeviceLike, resolve_device
 from dynamic3dgaussians_tpu_torch.ops.binning import tile_ranges
 from dynamic3dgaussians_tpu_torch.ops.camera import Camera
-from dynamic3dgaussians_tpu_torch.ops.cuda.raster_fwd import (
-    GEOM_ROWS, composite_tiles)
+from dynamic3dgaussians_tpu_torch.ops.cuda.raster_fwd import \
+    composite_tiles
 from dynamic3dgaussians_tpu_torch.ops.projection import Projected, project
 from dynamic3dgaussians_tpu_torch.ops.rasterize import (RasterConfig,
                                                         RenderOutput)
 from dynamic3dgaussians_tpu_torch.ops.sorted_raster import (
     _key64, _untile, depth_key_bits, emit, fuse_tile_depth_key,
-    record_columns, round_f16)
+    f16_rows, fused_opacity_rows, record_columns, round_f16)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,17 +117,18 @@ def build_cache(cam: Camera, means3d: torch.Tensor, opacity: torch.Tensor,
 
 def playback_records(proj: Projected, colors: torch.Tensor,
                      opacity: torch.Tensor, cache: PlaybackCache,
-                     chunk: int) -> torch.Tensor:
+                     chunk: int, power_impl: str = "vpu") -> torch.Tensor:
     """K1's (8 + CV, NE_pad) record table of a cached frame: this frame's
     per-gaussian rows (`sorted_raster.record_columns`, the conic, opacity
-    and channel rows through the f16 round trip) gathered through the
-    cache's ids; NE_pad = (ceil(n_live / chunk) + 1) * chunk, zeros past
-    the live pairs. colors (N, C), opacity (N,) zeroed for culled
-    gaussians."""
+    and channel rows through the f16 round trip; under "mxu_fused" rows 6
+    and 7 from the rounded opacity) gathered through the cache's ids;
+    NE_pad = (ceil(n_live / chunk) + 1) * chunk, zeros past the live pairs.
+    colors (N, C), opacity (N,) zeroed for culled gaussians."""
     table = record_columns(proj, colors, opacity)
-    f16_rows = [2, 3, 4, 5] + list(range(GEOM_ROWS,
-                                         GEOM_ROWS + colors.shape[-1]))
-    table[f16_rows] = round_f16(table[f16_rows])
+    for rows in f16_rows(colors.shape[-1]):
+        table[rows] = round_f16(table[rows])
+    if power_impl == "mxu_fused":
+        table[6], table[7] = fused_opacity_rows(table[5])
     n_live = cache.gidx.shape[0]
     ne_pad = (-(-n_live // chunk) + 1) * chunk
     rec_t = torch.zeros((table.shape[0], ne_pad), dtype=torch.float32,
@@ -161,10 +169,13 @@ def render_playback(cam: Camera, means3d: torch.Tensor, colors: torch.Tensor,
     if bg is not None:
         full_bg[:n_rgb] = bg
 
-    rec_t = playback_records(proj, all_chan, op, cache, chunk)
+    rec_t = playback_records(proj, all_chan, op, cache, chunk,
+                             power_impl=cfg.power_impl)
     raw, _, _ = composite_tiles(rec_t, cache.starts, cache.counts,
-                          num_tiles=num_tiles, grid_w=grid_w, tile_h=th,
-                          tile_w=tw, chunk=chunk)
+                                num_tiles=num_tiles, grid_w=grid_w,
+                                tile_h=th, tile_w=tw, chunk=chunk,
+                                precision=cfg.kernel_precision,
+                                power_impl=cfg.power_impl)
     alpha_t = raw[..., n_chan + 1]
     chan_t = raw[..., :n_chan] + (1.0 - alpha_t[..., None]) * full_bg
     channels = _untile(chan_t, grid_h, grid_w, th, tw, h, w, n_chan)

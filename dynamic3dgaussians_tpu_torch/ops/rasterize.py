@@ -22,9 +22,15 @@ and the activations around it. `grad_mask` is the reference's `_grad_gate`
 (the original's `label` gradient gating) and `mean2d_probe_ndc` its
 densification probe.
 
-The reference's TPU-only knobs (power_impl, scan_impl, tile_batch,
-pack_records, unsort_impl, kernel_precision) are not ported: the kernels
-compute the default power_impl="vpu" semantics in float32.
+Every field of the reference's RasterConfig computes here what it computes
+there. On the sorted-pair paths pack_records (the f16 record transport and
+the bf16 gradient transport), power_impl="mxu_fused" (the fused log2-alpha
+cell) and kernel_precision="default" (single-pass bf16 value products) are
+variants of the table and of the kernels (`sorted_raster.Variant`).
+power_impl "vpu" and "mxu", kernel_precision "highest" and "high",
+scan_impl, unsort_impl and tile_batch only change how the reference's TPU
+kernels schedule the same function, and are carried without effect. The
+"tiled" and "reference" paths ignore them all, as the reference's do.
 """
 
 from __future__ import annotations
@@ -40,17 +46,20 @@ from dynamic3dgaussians_tpu_torch.device import (DeviceLike, no_tf32,
 from dynamic3dgaussians_tpu_torch.ops import compositing
 from dynamic3dgaussians_tpu_torch.ops.binning import TileBins, bin_gaussians
 from dynamic3dgaussians_tpu_torch.ops.camera import Camera
-from dynamic3dgaussians_tpu_torch.ops.cuda.raster_fwd import \
-    tile_pixel_coords
+from dynamic3dgaussians_tpu_torch.ops.cuda.raster_fwd import (
+    POWER_IMPLS, PRECISIONS, tile_pixel_coords)
 from dynamic3dgaussians_tpu_torch.ops.projection import Projected, project
 from dynamic3dgaussians_tpu_torch.ops.rasterize_ref import \
     render_primitives_reference
 from dynamic3dgaussians_tpu_torch.ops.sh import sh_to_color
 from dynamic3dgaussians_tpu_torch.ops.sorted_raster import (DEPTH_MODES,
-                                                            _untile,
+                                                            Variant, _untile,
                                                             render_sorted)
 
 METHODS = ("auto", "reference", "torch", "cuda", "tiled")
+SCAN_IMPLS = ("matmul_split3", "matmul_block128", "matmul_highest",
+              "roll_scan")
+UNSORT_IMPLS = ("sort", "gather")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,6 +81,21 @@ class RasterConfig:
     # alpha gate; emit_enum_cap sizes the tested rect window (0 = auto)
     exact_cull: bool = True
     emit_enum_cap: int = 0
+    # sorted-pair paths: the value products as one bf16 pass ("default")
+    # or in float32 ("highest"; "high" is the same)
+    kernel_precision: str = "highest"
+    # "mxu_fused": K1's fused log2-alpha cell (needs tiles <= 16, as
+    # "mxu" does); "vpu" and "mxu" compute the same
+    power_impl: str = "vpu"
+    # the reference's TPU prefix-scan schedule: no effect here
+    scan_impl: str = "matmul_split3"
+    # f16 transport of the records and bf16 of their gradients (with a
+    # fused key)
+    pack_records: bool = False
+    # the reference's TPU unsort schedule: no effect here
+    unsort_impl: str = "sort"
+    # tiles per reference TPU kernel step: no effect here
+    tile_batch: int = 1
     # "tiled" path only: pairs composited per tile (more are counted in
     # RenderOutput.n_dropped_tile_overflow) and the pair capacity per
     # gaussian (`pair_capacity`; more are counted in n_dropped_capacity)
@@ -79,9 +103,23 @@ class RasterConfig:
     pairs_per_gaussian: int = 8
 
     def __post_init__(self):
-        if self.depth_mode not in DEPTH_MODES:
-            raise ValueError(f"depth_mode must be one of {DEPTH_MODES}, got "
-                             f"{self.depth_mode!r}")
+        for name, allowed in (("depth_mode", DEPTH_MODES),
+                              ("kernel_precision", PRECISIONS),
+                              ("power_impl", POWER_IMPLS),
+                              ("scan_impl", SCAN_IMPLS),
+                              ("unsort_impl", UNSORT_IMPLS)):
+            if getattr(self, name) not in allowed:
+                raise ValueError(f"{name} must be one of {allowed}, got "
+                                 f"{getattr(self, name)!r}")
+        if self.tile_batch < 1:
+            raise ValueError(f"tile_batch must be >= 1, got "
+                             f"{self.tile_batch}")
+
+    def variant(self) -> Variant:
+        """The settings that change what the sorted-pair path computes."""
+        return Variant(pack_records=self.pack_records,
+                       power_impl=self.power_impl,
+                       kernel_precision=self.kernel_precision)
 
     def pair_capacity(self, n: int) -> int:
         cap = self.pairs_per_gaussian * n
@@ -299,7 +337,7 @@ def render(cam: Camera,
             fused_key=cfg.fused_key, depth_mode=cfg.depth_mode,
             exact_cull=cfg.exact_cull, enum_cap=cfg.emit_enum_cap,
             use_kernel=method == "cuda", pair_cap=pair_cap,
-            pair_stats=pair_stats)
+            pair_stats=pair_stats, variant=cfg.variant())
 
     return RenderOutput(
         rgb=channels[..., :n_rgb],

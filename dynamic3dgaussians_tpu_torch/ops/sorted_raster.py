@@ -37,9 +37,31 @@ the result:
 
 The sorts are stable: pairs with equal keys keep their emission order (one
 of the orders the reference's unstable sorts may give) in both forms.
+
+The reference's settings that change the numerics (`Variant`) act here
+and in the kernels:
+
+  * pack_records (with a fused key, bits_z > 0): the reference sends the
+    forward payload through its sort as f16 pairs (`pack2_f16`) and the
+    backward's gradient rows through its unsort as bf16 pairs
+    (`pack2_bf16`). The port has no payload sort, so it applies the same
+    rounding to the gathered table (`pack_columns`): x and y relative to
+    the pair's own tile (its sorted tile key), then rounded to f16, then
+    the tile origin added back; conic a, b, c, opacity and the channel
+    rows rounded to f16; the depth and ones rows as they are. In the
+    backward the gradient rows of x, y, the conic, opacity, depth and the
+    channels are rounded as `pack2_bf16` rounds (`round_bf16`) before the
+    per-slot store and the K sum.
+  * power_impl="mxu_fused": rows 6 and 7 of the table hold log2 opacity
+    and its clamp (`fused_opacity_rows`, from the opacity row after the
+    f16 rounding), for K1's FUSED variant; the backward runs K2's default
+    body, as the reference's does.
+  * kernel_precision="default": K1's and K2's BF16 variants.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -47,11 +69,25 @@ from dynamic3dgaussians_tpu_torch.ops.binning import emit_pairs, tile_ranges
 from dynamic3dgaussians_tpu_torch.ops.cuda.raster_bwd import (
     composite_tiles_bwd, composite_tiles_bwd_torch)
 from dynamic3dgaussians_tpu_torch.ops.cuda.raster_fwd import (
-    GEOM_ROWS, composite_tiles, composite_tiles_torch)
+    GEOM_ROWS, LOG2_ALPHA_MAX, composite_tiles, composite_tiles_torch)
 from dynamic3dgaussians_tpu_torch.ops.projection import Projected
 
 DEPTH_MODES = ("quantized", "exact", "total")
 LOG2E = 1.4426950408889634
+
+
+class Variant(NamedTuple):
+    """The reference's raster settings that change what the sorted-pair
+    path computes (`RasterConfig` fields of the same names)."""
+
+    pack_records: bool = False
+    power_impl: str = "vpu"
+    kernel_precision: str = "highest"
+
+    def kernel_kw(self) -> dict:
+        """K1's variant keywords (K2 takes `precision` alone)."""
+        return dict(precision=self.kernel_precision,
+                    power_impl=self.power_impl)
 
 
 def depth_key_bits(num_tiles: int) -> int:
@@ -87,6 +123,62 @@ def round_f16(x: torch.Tensor) -> torch.Tensor:
     reference's packed f16 gather transport (`pack2_f16`, `unpack2_f16`)
     delivers. Magnitudes past 65504 become inf, as there."""
     return x.to(torch.float16).to(torch.float32)
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the bf16 value the reference's gradient transport
+    (`pack2_bf16`, `unpack2_bf16`) delivers, as float32: 0x8000 added to
+    the bits of a finite value (round to nearest, ties away from zero, the
+    carry reaching the exponent, so past the largest bf16 it is inf), then
+    the low 16 bits cleared; inf and NaN only truncated."""
+    bits = x.contiguous().view(torch.int32)
+    bits = torch.where(torch.isfinite(x), bits + 0x8000, bits)
+    return (bits & -65536).view(torch.float32)
+
+
+def fused_opacity_rows(op: torch.Tensor):
+    """(r6, r7) of the fused variant from the opacity row: r6 = log2(max(op,
+    2^-100)), r7 = min(r6, log2 0.99), as the reference's `_prepare`
+    fills them under power_impl="mxu_fused"."""
+    r6 = torch.log2(torch.clamp(op, min=2.0 ** -100))
+    return r6, torch.clamp(r6, max=LOG2_ALPHA_MAX)
+
+
+def f16_rows(n_chan: int):
+    """The table rows the reference's record pack sends as f16 besides x and
+    y, as slices: conic a, b, c and opacity; the channels. (Slices, not
+    an index list: a list becomes a host tensor copied to the device,
+    which a CUDA graph capture refuses.)"""
+    return slice(2, 6), slice(GEOM_ROWS, GEOM_ROWS + n_chan)
+
+
+def pack_columns(cols: torch.Tensor, tile: torch.Tensor, *, n_chan: int,
+                 grid_w: int, tile_h: int, tile_w: int) -> torch.Tensor:
+    """The record pack's rounding of gathered table columns (8 + CV, n),
+    in place: x and y relative to the origin of `tile` (each column's
+    tile), rounded to f16 and moved back; `f16_rows` rounded to f16."""
+    tx = ((tile % grid_w) * tile_w).to(torch.float32)
+    ty = (torch.div(tile, grid_w, rounding_mode="floor")
+          * tile_h).to(torch.float32)
+    cols[0] = round_f16(cols[0] - tx) + tx
+    cols[1] = round_f16(cols[1] - ty) + ty
+    for rows in f16_rows(n_chan):
+        cols[rows] = round_f16(cols[rows])
+    return cols
+
+
+def _finish_columns(cols, tile, *, n_chan, bits_z, variant, grid_w, tile_h,
+                    tile_w):
+    """The variant's rounding and rows of gathered columns, in place."""
+    if variant.pack_records and bits_z > 0:
+        if grid_w <= 0:
+            raise ValueError("pack_records needs the tile grid (grid_w, "
+                             "tile_h, tile_w)")
+        pack_columns(cols, tile, n_chan=n_chan, grid_w=grid_w,
+                     tile_h=tile_h, tile_w=tile_w)
+    if variant.power_impl == "mxu_fused":
+        cols[6], cols[7] = fused_opacity_rows(cols[5])
+    return cols
 
 
 def affine_depth_range(live: torch.Tensor, depth: torch.Tensor):
@@ -151,14 +243,18 @@ def _sort_live(lt: torch.Tensor, ld: torch.Tensor, live: torch.Tensor,
 
 def prepare_records(tile_key: torch.Tensor, gid: torch.Tensor,
                     table: torch.Tensor, *, n_chan: int, num_tiles: int,
-                    chunk: int, bits_z: int, depth_mode: str):
+                    chunk: int, bits_z: int, depth_mode: str,
+                    variant: Variant = Variant(), grid_w: int = 0,
+                    tile_h: int = 16, tile_w: int = 16):
     """Sort the live pairs and build the merged record table.
 
     table: (8 + CV, N) per-gaussian record columns, the depth row holding
     the view depth. Returns (rec_t (8 + CV, NE_pad), starts, counts, slot)
     with NE_pad = (ceil(n_live / chunk) + 1) * chunk and slot (n_live,) the
     emission slot of each sorted pair. Reads the live-pair count from the
-    device (one host synchronisation).
+    device (one host synchronisation). `variant`'s pack (which needs the
+    tile grid: grid_w, tile_h, tile_w) and fused rows apply to the sorted
+    columns.
     """
     dev = table.device
     depth_row = GEOM_ROWS + n_chan
@@ -175,8 +271,11 @@ def prepare_records(tile_key: torch.Tensor, gid: torch.Tensor,
     ld = table[depth_row, lg]
     perm, sd = _sort_live(lt, ld, torch.ones_like(lt, dtype=torch.bool),
                           bits_z, depth_mode)
-    starts, counts = tile_ranges(lt[perm].contiguous(), num_tiles)
-    rec_t[:, :n_live] = table[:, lg[perm]]
+    st = lt[perm].contiguous()
+    starts, counts = tile_ranges(st, num_tiles)
+    rec_t[:, :n_live] = _finish_columns(
+        table[:, lg[perm]], st, n_chan=n_chan, bits_z=bits_z,
+        variant=variant, grid_w=grid_w, tile_h=tile_h, tile_w=tile_w)
     rec_t[depth_row, :n_live] = sd
     return rec_t, starts.contiguous(), counts.contiguous(), live_idx[perm]
 
@@ -184,7 +283,9 @@ def prepare_records(tile_key: torch.Tensor, gid: torch.Tensor,
 def prepare_records_static(tile_key: torch.Tensor, gid: torch.Tensor,
                            table: torch.Tensor, *, n_chan: int,
                            num_tiles: int, chunk: int, bits_z: int,
-                           depth_mode: str, pair_cap: int):
+                           depth_mode: str, pair_cap: int,
+                           variant: Variant = Variant(), grid_w: int = 0,
+                           tile_h: int = 16, tile_w: int = 16):
     """`prepare_records` at a fixed pair capacity, with no host read.
 
     The live slots are compacted in slot order into `pair_cap` columns,
@@ -224,8 +325,11 @@ def prepare_records_static(tile_key: torch.Tensor, gid: torch.Tensor,
     ld = torch.where(valid, ld, torch.zeros_like(ld))
     perm, sd = _sort_live(lt, ld, valid, bits_z, depth_mode)
     valid = valid[perm]
-    starts, counts = tile_ranges(lt[perm].contiguous(), num_tiles)
-    cols = table[:, lg[perm]]
+    st = lt[perm].contiguous()
+    starts, counts = tile_ranges(st, num_tiles)
+    cols = _finish_columns(table[:, lg[perm]], st, n_chan=n_chan,
+                           bits_z=bits_z, variant=variant, grid_w=grid_w,
+                           tile_h=tile_h, tile_w=tile_w)
     cols[depth_row] = sd
     ne_pad = (-(-pair_cap // chunk) + 1) * chunk
     rec_t = torch.zeros((table.shape[0], ne_pad), dtype=torch.float32,
@@ -280,7 +384,7 @@ def sorted_records(h: int, w: int, proj: Projected, colors: torch.Tensor,
                    tile_w: int = 16, chunk: int = 128,
                    max_tiles_per_gaussian: int = 8, fused_key: bool = True,
                    depth_mode: str = "quantized", exact_cull: bool = True,
-                   enum_cap: int = 0):
+                   enum_cap: int = 0, variant: Variant = Variant()):
     """Emission, sort and merged record table: the kernels' inputs.
 
     colors (N, C) linear channels, opacity (N,) activated and zeroed for
@@ -298,7 +402,8 @@ def sorted_records(h: int, w: int, proj: Projected, colors: torch.Tensor,
     bits_z = depth_key_bits(num_tiles) if fused_key else 0
     rec_t, starts, counts, _ = prepare_records(
         tile_key, gid, table, n_chan=colors.shape[-1], num_tiles=num_tiles,
-        chunk=chunk, bits_z=bits_z, depth_mode=depth_mode)
+        chunk=chunk, bits_z=bits_z, depth_mode=depth_mode, variant=variant,
+        grid_w=-(-w // tile_w), tile_h=tile_h, tile_w=tile_w)
     return rec_t, starts, counts, n_dropped_rect
 
 
@@ -310,16 +415,17 @@ class _SortComposite(torch.autograd.Function):
     CV), and with a pair_cap or pair_stats also int64 [live pairs, live
     pairs past pair_cap] (no gradient): `prepare_records_static`'s, or the
     eager table's [live pairs, 0]. spec = (n_chan, num_tiles, grid_w,
-    tile_h, tile_w, chunk, bits_z, depth_mode, use_kernel).
+    tile_h, tile_w, chunk, bits_z, depth_mode, use_kernel, variant).
     """
 
     @staticmethod
     def forward(ctx, table, tile_key, gid, spec, pair_cap=None,
                 pair_stats=False):
         (n_chan, num_tiles, grid_w, tile_h, tile_w, chunk, bits_z,
-         depth_mode, use_kernel) = spec
+         depth_mode, use_kernel, variant) = spec
         kw = dict(n_chan=n_chan, num_tiles=num_tiles, chunk=chunk,
-                  bits_z=bits_z, depth_mode=depth_mode)
+                  bits_z=bits_z, depth_mode=depth_mode, variant=variant,
+                  grid_w=grid_w, tile_h=tile_h, tile_w=tile_w)
         if pair_cap is None:
             rec_t, starts, counts, slot = prepare_records(
                 tile_key, gid, table.detach(), **kw)
@@ -331,7 +437,7 @@ class _SortComposite(torch.autograd.Function):
         composite = composite_tiles if use_kernel else composite_tiles_torch
         raw, log_t, n_active = composite(
             rec_t, starts, counts, num_tiles=num_tiles, grid_w=grid_w,
-            tile_h=tile_h, tile_w=tile_w, chunk=chunk)
+            tile_h=tile_h, tile_w=tile_w, chunk=chunk, **variant.kernel_kw())
         ctx.save_for_backward(rec_t, starts, counts, log_t, n_active, slot)
         ctx.spec = spec
         ctx.n_slots = tile_key.shape[0]
@@ -344,16 +450,24 @@ class _SortComposite(torch.autograd.Function):
     @staticmethod
     def backward(ctx, d_raw, *_):
         rec_t, starts, counts, log_t, n_active, slot = ctx.saved_tensors
-        (n_chan, num_tiles, grid_w, tile_h, tile_w, chunk, _, _,
-         use_kernel) = ctx.spec
+        (n_chan, num_tiles, grid_w, tile_h, tile_w, chunk, bits_z, _,
+         use_kernel, variant) = ctx.spec
         bwd = composite_tiles_bwd if use_kernel else composite_tiles_bwd_torch
         d_out = bwd(rec_t, starts, counts, n_active.reshape(-1), log_t,
                     d_raw.contiguous(), num_tiles=num_tiles, grid_w=grid_w,
-                    tile_h=tile_h, tile_w=tile_w, chunk=chunk)
+                    tile_h=tile_h, tile_w=tile_w, chunk=chunk,
+                    precision=variant.kernel_precision)
         n_rows = rec_t.shape[0]
+        d_pairs = d_out[:, :slot.shape[0]]
+        if variant.pack_records and bits_z > 0:
+            # the rows the reference's unsort carries: x, y, the conic,
+            # opacity; the channels and depth
+            for rows in (slice(0, 6),
+                         slice(GEOM_ROWS, GEOM_ROWS + n_chan + 1)):
+                d_pairs[rows] = round_bf16(d_pairs[rows])
         per_slot = torch.zeros((n_rows, ctx.n_slots), dtype=torch.float32,
                                device=rec_t.device)
-        per_slot[:, slot] = d_out[:, :slot.shape[0]]
+        per_slot[:, slot] = d_pairs
         d_table = per_slot.reshape(n_rows, -1, ctx.n_gauss).sum(1)
         d_table[GEOM_ROWS + n_chan + 1:] = 0.0     # ones and pad rows
         return d_table, None, None, None, None, None
@@ -365,7 +479,8 @@ def render_sorted(h: int, w: int, proj: Projected, colors: torch.Tensor,
                   max_tiles_per_gaussian: int = 8, fused_key: bool = True,
                   depth_mode: str = "quantized", exact_cull: bool = True,
                   enum_cap: int = 0, use_kernel: bool = True,
-                  pair_cap: int = None, pair_stats: bool = False):
+                  pair_cap: int = None, pair_stats: bool = False,
+                  variant: Variant = Variant()):
     """Differentiable sorted-pair render.
 
     colors (N, C) linear channels, opacity (N,) activated and zeroed for
@@ -393,7 +508,7 @@ def render_sorted(h: int, w: int, proj: Projected, colors: torch.Tensor,
     table = record_columns(proj, colors, opacity)
     bits_z = depth_key_bits(num_tiles) if fused_key else 0
     spec = (n_chan, num_tiles, grid_w, tile_h, tile_w, chunk, bits_z,
-            depth_mode, use_kernel)
+            depth_mode, use_kernel, variant)
     if pair_cap is None and not pair_stats:
         raw, stats = _SortComposite.apply(table, tile_key, gid, spec), None
     else:

@@ -15,6 +15,11 @@ axis. Each rank sorts and composites about 1/K of the pairs.
 The inputs and the image are held whole by every rank, and the gradient
 of a loss of the image reaches each rank's inputs whole
 (`collectives.enter_replicated` / `exit_replicated`).
+
+Of the settings that change the numerics, the stripes take
+`kernel_precision` alone, as the reference's do (its stripe composite is
+built with the precision and the defaults of the rest): `pack_records`
+and `power_impl` have no effect here.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from dynamic3dgaussians_tpu_torch.ops.camera import Camera
 from dynamic3dgaussians_tpu_torch.ops.projection import project
 from dynamic3dgaussians_tpu_torch.ops.rasterize import RasterConfig
 from dynamic3dgaussians_tpu_torch.ops.sorted_raster import (_SortComposite,
+                                                            Variant,
                                                             _untile,
                                                             depth_key_bits,
                                                             record_columns)
@@ -58,7 +64,8 @@ def stripe_table(cam: Camera, cfg: RasterConfig, k: int, d: int,
     table = record_columns(proj, colors, op)
     bits_z = depth_key_bits(tiles_local) if cfg.fused_key else 0
     spec = (colors.shape[-1], tiles_local, grid_w, th, tw, cfg.chunk, bits_z,
-            cfg.depth_mode, means3d.device.type == "cuda")
+            cfg.depth_mode, means3d.device.type == "cuda",
+            Variant(kernel_precision=cfg.kernel_precision))
     return table, key_local, gid, spec
 
 

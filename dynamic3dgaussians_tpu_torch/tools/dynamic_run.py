@@ -20,10 +20,11 @@ written after every timestep, so a run that is cut keeps what it reached.
 CPU smoke: `python -m dynamic3dgaussians_tpu_torch.tools.dynamic_run
 --device cpu --n 2000 --timesteps 3 --iters0 40 --iters 20 --hw 96`.
 
-The reference's settings that exist for the TPU, and what they become:
+The reference's settings, and what they become:
 
-  * `pack_records=True` (the bf16 record pack) becomes False: the port's
-    records are float32 and its config raises on True.
+  * `pack_records=True`, as in the reference's tool: the records reach the
+    kernels through the f16 transport and their gradients through the
+    bf16 one (`ops/sorted_raster.py`), the reference's r5 configuration.
   * `pairs_budget_cap` (16 on the reference's CPU) becomes 0: it sizes
     only the tiled path, which this tool does not take.
   * `--steps_per_call` W runs windows of W steps between host actions,
@@ -134,7 +135,7 @@ def build_config(args):
         pairs_budget_cap=0,
         raster=RasterSettings(tile_h=16, tile_w=16, chunk=128,
                               max_tiles_per_gaussian=args.k_cap,
-                              pack_records=False))
+                              pack_records=True))
 
 
 def run(args, callbacks: Optional[Dict] = None) -> dict:

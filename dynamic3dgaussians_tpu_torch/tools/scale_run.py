@@ -30,10 +30,10 @@ CPU smoke: `python -m dynamic3dgaussians_tpu_torch.tools.scale_run
 --device cpu --n 2000 --hw 96 --iters 150 --report 25
 --densify_every 50`.
 
-The reference's TPU-only `pack_records=True` becomes False (the port's
-records are float32); `--pairs_cap` and `--max_per_tile` size only the
-tiled path and are kept in the config as given; the XLA compilation
-cache is dropped. The default `--out` is
+`pack_records=True`, as in the reference's tool (the f16 record and
+bf16 gradient transport of `ops/sorted_raster.py`); `--pairs_cap` and
+`--max_per_tile` size only the tiled path and are kept in the config as
+given; the XLA compilation cache is dropped. The default `--out` is
 `artifacts/torch_scale_run_<device type>.json`.
 """
 
@@ -108,7 +108,7 @@ def build_config(args):
                               pairs_per_gaussian=(args.pairs_cap
                                                   or args.k_cap),
                               max_per_tile=args.max_per_tile,
-                              pack_records=False))
+                              pack_records=True))
 
 
 def run(args) -> dict:

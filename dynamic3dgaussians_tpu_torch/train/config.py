@@ -9,17 +9,22 @@ unchanged. What the port makes of the fields that exist for the TPU:
     the plain versions and "cuda" the kernels; "tiled" is the reference's
     pure-XLA path, plain PyTorch here.
   * raster.max_per_tile and raster.pairs_per_gaussian size only the tiled
-    path. scan_impl and unsort_impl only change how the TPU schedules the
-    same result and are ignored; power_impl "mxu_fused" and
-    pack_records=True change the numerics and raise.
+    path. power_impl "mxu_fused" (K1's fused log2-alpha cell) and
+    pack_records=True (the f16 record and bf16 gradient transport)
+    compute on the kernel path what they compute in the reference
+    (`ops/rasterize.py::RasterConfig`); power_impl "vpu" and "mxu" compute
+    the same, and scan_impl and unsort_impl only schedule the reference's
+    TPU kernels, so they have no effect.
   * steps_per_call > 1 runs the steps between host actions in windows of
     that many, as the reference does (`trainer.make_train_scan`): on the
     card a CUDA graph of the step replayed once per step, no host read
     inside a window; the steps, their camera stream and their result are
     those of steps_per_call = 1.
-  * knn_method "approx" builds the graph with `ops/knn.py::knn_approx`;
-    neighbor_window (the TPU's windowed neighbour fetch) is not ported and
-    raises.
+  * knn_method "approx" builds the graph with `ops/knn.py::knn_approx`.
+    neighbor_window=True makes the reference fetch the frozen graph's
+    neighbours through a windowed one-hot MXU product, which is exact
+    (and, measured there, slower than its default prefix gather); the port
+    fetches them through its prefix gather either way, the same values.
 """
 
 from __future__ import annotations
@@ -53,17 +58,11 @@ class RasterSettings:
     method: str = "auto"
 
     def render_method(self) -> str:
-        """The port's render method for `method`; raises for what the port
-        does not run."""
+        """The port's render method for `method`; raises for an unknown
+        one."""
         if self.method not in RENDER_METHODS:
             raise ValueError(f"raster.method {self.method!r} is not ported "
                              f"(one of {sorted(RENDER_METHODS)})")
-        if self.power_impl not in ("vpu", "mxu"):
-            raise ValueError(f"raster.power_impl {self.power_impl!r} changes "
-                             f"the numerics and is not ported")
-        if self.pack_records:
-            raise ValueError("raster.pack_records=True changes the numerics "
-                             "and is not ported")
         return RENDER_METHODS[self.method]
 
 

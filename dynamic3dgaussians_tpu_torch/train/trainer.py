@@ -89,7 +89,10 @@ def raster_config(cfg: TrainConfig) -> RasterConfig:
                         max_per_tile=r.max_per_tile,
                         max_tiles_per_gaussian=r.max_tiles_per_gaussian,
                         pairs_per_gaussian=r.pairs_per_gaussian,
-                        exact_cull=r.exact_cull)
+                        exact_cull=r.exact_cull, power_impl=r.power_impl,
+                        scan_impl=r.scan_impl,
+                        pack_records=r.pack_records,
+                        unsort_impl=r.unsort_impl)
 
 
 def resize_feature_map(feat: torch.Tensor, hw) -> torch.Tensor:
@@ -395,15 +398,14 @@ def initialize_post_first_timestep(params: Dict, variables: Dict,
     rows first, in reverse Cuthill-McKee order of their graph, and the edge
     plan covers that prefix only. `timings`, when given, receives the
     seconds of the kNN ("knn_s") and of the reorder ("rcm_s").
+    `cfg.neighbor_window` builds nothing more: the reference's windowed
+    fetch plan (`win_*`) reads the same neighbours as the prefix gather.
 
     Returns (params, variables, opt_state).
     """
     if cfg.knn_method not in ("exact", "approx"):
         raise NotImplementedError(f"knn_method {cfg.knn_method!r} is not "
                                   f"one of 'exact', 'approx'")
-    if cfg.neighbor_window:
-        raise NotImplementedError("neighbor_window (the TPU windowed fetch) "
-                                  "is not ported")
     timings = {} if timings is None else timings
     dev = variables["alive"].device
     alive = variables["alive"]

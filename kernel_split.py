@@ -150,9 +150,9 @@ VARIANTS = {
     "fwd_no_cull": ("fwd", "current", [(
         "d3g::box_hits(d3g::load_box(bx, chunk, jj), rect)", "true")]),
     "fwd_fast_exp": ("fwd", "current", [(
-        "const float w = cell.alpha * exp2f(cum + log2t);",
+        "accumulate(cell.alpha * exp2f(cum + log2t), j);",
         'float t; asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(t)'
-        ' : "f"(cum + log2t)); const float w = cell.alpha * t;')]),
+        ' : "f"(cum + log2t)); accumulate(cell.alpha * t, j);')]),
     "fwd_sync_stage": ("fwd", "current", [(
         "col + chunk, chunk);", "col + chunk, chunk);\n"
         "      d3g::cp_async_wait_all();")]),
@@ -264,26 +264,33 @@ def build(names, parent_dir, out_dir):
     return out
 
 
-def takes_order(name, parent_dir):
-    """Whether the variant's C entry point takes the tile-order scratch
-    (sources from this change on do)."""
-    return "int* order" in variant_source(name, parent_dir)
+def entry_args(name, parent_dir):
+    """What the variant's C entry point takes beyond the oldest sources':
+    the tile-order scratch (K2), the variant int (K1: FUSED / BF16 bits;
+    K2: BF16) and the device run counter."""
+    text = variant_source(name, parent_dir)
+    return dict(order="int* order" in text,
+                variant="int variant" in text or "int bf16" in text,
+                runs="unsigned long long* runs" in text)
 
 
-def load(path, kern, order):
+def load(path, kern, ea):
     lib = ctypes.CDLL(str(path))
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    o = [vp] if order else []
+    o = [vp] if ea["order"] else []
+    v = [i32] if ea["variant"] else []
+    r = [vp] if ea["runs"] else []
     if kern == "sol":
         lib.d3g_sol_probe.argtypes = [vp, i64, i32, i32, vp, vp]
         lib.d3g_sol_probe.restype = i32
     elif kern == "fwd":
         lib.d3g_raster_fwd.argtypes = [vp, i64, i32, vp, vp, i32, i32, i32,
-                                       i32, i32, *o, vp, vp, vp, vp]
+                                       i32, i32, *v, *o, vp, vp, vp, *r, vp]
         lib.d3g_raster_fwd.restype = i32
     else:
         lib.d3g_raster_bwd.argtypes = [vp, i64, i32, vp, vp, vp, vp, vp, i32,
-                                       i32, i32, i32, i32, *o, vp, vp]
+                                       i32, i32, i32, i32, *v, *o, vp, *r,
+                                       vp]
         lib.d3g_raster_bwd.restype = i32
     lib.d3g_error_string.argtypes = [i32]
     lib.d3g_error_string.restype = ctypes.c_char_p
@@ -344,9 +351,11 @@ def main(argv=None) -> int:
             order = torch.empty_like(counts)
             for name in names:
                 kern = VARIANTS[name][0]
-                has_order = takes_order(name, args.parent)
-                o = [order.data_ptr()] if has_order else []
-                lib = load(libs[name][0], kern, has_order)
+                ea = entry_args(name, args.parent)
+                o = [order.data_ptr()] if ea["order"] else []
+                v = [0] if ea["variant"] else []     # the default variant
+                r = [None] if ea["runs"] else []     # no run counter
+                lib = load(libs[name][0], kern, ea)
                 stream = torch.cuda.current_stream().cuda_stream
 
                 def run(cnt=counts):
@@ -355,17 +364,18 @@ def main(argv=None) -> int:
                             rec_t.data_ptr(), rec_t.shape[1], rec_t.shape[0],
                             starts.data_ptr(), cnt.data_ptr(),
                             kw["num_tiles"], kw["grid_w"], kw["tile_h"],
-                            kw["tile_w"], kw["chunk"], *o,
+                            kw["tile_w"], kw["chunk"], *v, *o,
                             out_f[0].data_ptr(),
-                            out_f[1].data_ptr(), out_f[2].data_ptr(), stream)
+                            out_f[1].data_ptr(), out_f[2].data_ptr(), *r,
+                            stream)
                     else:
                         err = lib.d3g_raster_bwd(
                             rec_t.data_ptr(), rec_t.shape[1], rec_t.shape[0],
                             starts.data_ptr(), cnt.data_ptr(),
                             nact.data_ptr(), log_t.data_ptr(),
                             d_raw.data_ptr(), kw["num_tiles"], kw["grid_w"],
-                            kw["tile_h"], kw["tile_w"], kw["chunk"], *o,
-                            d_out.data_ptr(), stream)
+                            kw["tile_h"], kw["tile_w"], kw["chunk"], *v, *o,
+                            d_out.data_ptr(), *r, stream)
                     _build.check(lib, err, name)
 
                 ms, _ = cuda_ms(run, iters=args.iters, warmup=2)

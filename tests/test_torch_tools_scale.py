@@ -3,12 +3,15 @@ scale_run.py`) against the reference's `tools/scale_run.py`, at a small
 size on the CPU.
 
 Both tools on the same (port-rendered) images up to the first densify
-pass at step 100, the reference on its CPU path ("tiled"): the loss of
-every step within 1e-4 relative, the whole-run bound of
+pass at step 100, the reference on its kernel path ("pallas", interpret
+mode) as on its TPU, since both tools ship `pack_records=True`, which the
+reference's CPU path ("tiled") ignores: the loss of every step within
+1e-4 relative, the whole-run bound of
 tests/test_torch_physics.py (over 100 steps Adam turns rounding-level
 gradient differences into +-lr moves that accumulate: 1e-7 - 5e-7 over
-the first 70 steps, up to 3.8e-5 by step 100), PSNR at the reports
-within 1e-3, and the densify counts equal with the reference's split
+the first 70 steps, up to 3.8e-5 by step 100; with the record pack's
+bf16 gradient rounding, up to 7.0e-5), PSNR at the reports within one
+step of the logs' 1e-3 rounding, and the densify counts equal with the reference's split
 noise injected (`densify(noise=)`). Past that the random streams differ
 (`torch.Generator`, `jax.random`), so a longer run holds the port's own
 invariants: alive <= capacity, a grow event when the free slots run
@@ -16,6 +19,7 @@ out, K doubling at a report with rect drops, and the `--min_gain_db`
 exit.
 """
 
+import dataclasses
 import json
 
 import jax
@@ -33,6 +37,16 @@ torch.set_num_threads(1)
 
 SR_ARGV = ["--n", "300", "--hw", "48", "--cams", "3", "--iters", "101",
            "--report", "20", "--densify_every", "100", "--k_cap", "16"]
+
+
+def _on_kernel_path(make):
+    """The reference's make_train_step with its raster method set to
+    "pallas": the path its tool's settings are for."""
+    def wrapped(cfg, rcfg, *a, **kw):
+        cfg = dataclasses.replace(cfg, raster=dataclasses.replace(
+            cfg.raster, method="pallas"))
+        return make(cfg, rcfg, *a, **kw)
+    return wrapped
 
 
 def test_scale_run_matches_reference_tool_up_to_first_densify(tmp_path):
@@ -58,6 +72,8 @@ def test_scale_run_matches_reference_tool_up_to_first_densify(tmp_path):
         # images (the camera orbit is the same in both)
         mp.setattr("dynamic3dgaussians_tpu.data.synthetic.make_dataset",
                    lambda *a, **kw: (jds, w2c, None))
+        mp.setattr(jtr, "make_train_step",
+                   _on_kernel_path(jtr.make_train_step))
         mp.setattr(jtr, "make_train_step", _step_recorder(jtr, jax_losses))
         _run_reference(mp, "scale_run",
                        SR_ARGV + ["--out", str(tmp_path / "r.json")])
@@ -74,7 +90,11 @@ def test_scale_run_matches_reference_tool_up_to_first_densify(tmp_path):
         assert abs(tl - jl) <= 1e-4 * abs(jl), (tl, jl)
     assert [p["i"] for p in got["psnr"]] == [p["i"] for p in want["psnr"]]
     for a, b in zip(got["psnr"], want["psnr"]):
-        assert abs(a["psnr"] - b["psnr"]) <= 1e-3, (a, b)
+        # both logs round PSNR to 1e-3: at most one step apart, counted in
+        # steps (the float difference of two rounded values one step apart
+        # can exceed 1e-3 by a representation error)
+        assert abs(round(a["psnr"] * 1000) - round(b["psnr"] * 1000)) <= 1, \
+            (a, b)
     assert got["densify"] == want["densify"]
     assert got["densify"][0]["cloned"] + got["densify"][0]["split"] > 0
     assert got["grow_tiles"] == want["grow_tiles"] == []

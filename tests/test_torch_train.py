@@ -22,6 +22,7 @@ Tolerances, each with its reason:
   by up to 2 lr per step.
 """
 
+import dataclasses
 import json
 import os
 
@@ -392,10 +393,21 @@ def test_config_json_round_trips_between_packages():
     assert json.loads(tcfg.to_json()) == json.loads(jcfg.to_json())
     assert tcfg.raster.render_method() == "auto"
     assert tconf.RasterSettings(method="tiled").render_method() == "tiled"
-    for bad in (dict(method="xla"), dict(power_impl="mxu_fused"),
-                dict(pack_records=True)):
-        with pytest.raises(ValueError):
-            tconf.RasterSettings(**bad).render_method()
+    # an unknown method raises; the numerics-changing settings, refused
+    # before they were ported, reach the render's RasterConfig
+    for over in (dict(method="xla"), dict(power_impl="mxu_fused"),
+                 dict(pack_records=True)):
+        settings = tconf.RasterSettings(**over)
+        if "method" in over:
+            with pytest.raises(ValueError):
+                settings.render_method()
+            continue
+        assert settings.render_method() == "auto"
+        rcfg = ttr.raster_config(tconf.TrainConfig(raster=settings))
+        jrcfg = jtr.raster_config(jconf.TrainConfig(
+            raster=jconf.RasterSettings(**over)))
+        for f in dataclasses.fields(rcfg):
+            assert getattr(rcfg, f.name) == getattr(jrcfg, f.name), f.name
 
 
 # ------------------------------------------------------- the slice, whole
@@ -558,16 +570,64 @@ def test_cli_train_on_reference_layout(tmp_path):
 
 
 def test_train_refuses_later_slices(world):
-    """What stays unported raises: the TPU's windowed neighbour fetch
-    (`neighbor_window`) and a kNN method other than exact or approx.
-    (Checkpoints, refused here before, are ported: see
+    """A kNN method other than exact or approx raises. neighbor_window,
+    refused before it was ported, builds the same frozen graph as the
+    reference's initialize_post_first_timestep (which adds its window
+    plan, `win_*`, at capacity 1024: the plan needs a multiple of 128),
+    and a t > 0 train step from the reference's state, its params moved
+    off the first step's tie so that rigid, rot and iso carry the fetched
+    neighbours, equals the reference's step through its windowed fetch:
+    the loss and each of those terms within 1e-5 relative, the new
+    parameters within 2 lr (as `test_train_matches_jax_train`). Both on
+    the "tiled" path. (Checkpoints, refused here before, are ported: see
     tests/test_torch_checkpoint.py.)"""
-    _, tds, pt, w2c = world
-    for over, match in (({"neighbor_window": True}, "neighbor_window"),
-                        ({"knn_method": "kdtree"}, "knn_method")):
-        cfg = tconf.TrainConfig(num_timesteps=1, iters_first_timestep=1,
-                                densify_start=10 ** 9, capacity=1024,
-                                raster=tconf.RasterSettings(chunk=64),
-                                **over)
-        with pytest.raises(NotImplementedError, match=match):
-            ttr.train(tds, cfg, pt, w2c, device="cpu")
+    ds, tds, pt, w2c = world
+    cfg = tconf.TrainConfig(num_timesteps=1, iters_first_timestep=1,
+                            densify_start=10 ** 9, capacity=1024,
+                            raster=tconf.RasterSettings(chunk=64),
+                            knn_method="kdtree")
+    with pytest.raises(NotImplementedError, match="knn_method"):
+        ttr.train(tds, cfg, pt, w2c, device="cpu")
+
+    kw = dict(neighbor_window=True, num_knn=8, knn_weight_beta=20.0)
+    jcfg = jconf.TrainConfig(raster=jconf.RasterSettings(
+        chunk=64, max_tiles_per_gaussian=64, method="tiled"), **kw)
+    tcfg = tconf.TrainConfig(raster=tconf.RasterSettings(
+        chunk=64, max_tiles_per_gaussian=64, method="tiled"), **kw)
+    jp, jv = JG.init_params(pt, w2c, capacity=1024)
+    js = jopt.init(jp)
+    tp, tv, ts = ttr.initialize_post_first_timestep(
+        _t(jp), convert.variables_from_jax(_np(jv), "cpu"), tcfg,
+        convert.adam_state_from_jax(_np(js.mu), _np(js.nu), 0, "cpu"))
+    jp, jv, js = jtr.initialize_post_first_timestep(jp, jv, jcfg, js)
+    assert "win_start" in jv and not any(k.startswith("win_") for k in tv)
+    for key in ("neighbor_indices", "edge_rank", "edge_row_ptr"):
+        np.testing.assert_array_equal(tv[key].numpy(), np.asarray(jv[key]),
+                                      err_msg=key)
+    _close(tp, jp, atol=1e-6)
+
+    jp, jv, js = jtr.initialize_per_timestep(jp, jv, js)
+    rng = np.random.RandomState(13)
+    jp = {k: (v + jnp.asarray(rng.normal(0, 0.01, v.shape), jnp.float32)
+              if k in ("means3D", "unnorm_rotations", "rgb_colors") else v)
+          for k, v in jp.items()}
+    lrs = {k: float(jcfg.lrs.get(k, 0.0)) * (
+        float(jv["scene_radius"]) if k == "means3D" else 1.0)
+        * (0.0 if k in jcfg.freeze_after_t0 else 1.0) for k in jp}
+    jstep = jtr.make_train_step(jcfg, jtr.raster_config(jcfg))
+    jp2, _, _, jm = jstep(jp, js, jv, ds[0][1],
+                          {k: jnp.float32(v) for k, v in lrs.items()},
+                          is_initial=False)
+    tstep = ttr.make_train_step(tcfg, ttr.raster_config(tcfg))
+    tp2, _, _, tm = tstep(
+        _t(jp), convert.adam_state_from_jax(_np(js.mu), _np(js.nu),
+                                            js.step, "cpu"),
+        convert.variables_from_jax(_np(jv), "cpu"), tds[0][1],
+        {k: torch.tensor(v) for k, v in lrs.items()}, False)
+    for key in ("loss", "loss_rigid", "loss_rot", "loss_iso"):
+        assert abs(float(tm[key]) - float(jm[key])) <= \
+            1e-5 * abs(float(jm[key])), key
+        assert float(jm[key]) > 1e-4, key
+    for k in jp2:
+        np.testing.assert_allclose(tp2[k].numpy(), np.asarray(jp2[k]),
+                                   atol=2 * lrs[k] + 1e-6, rtol=0, err_msg=k)

@@ -268,19 +268,25 @@ def test_host_counts_launches_not_replays(world, monkeypatch):
 
 
 def test_run_counters(monkeypatch):
-    """A wrapper's device counter is made once per device and zeroed in
-    place (a captured graph keeps its address); made for the first time
-    inside a capture, it raises."""
+    """A wrapper's device counters (one per variant) are made once per
+    device and zeroed in place (a captured graph keeps their address); made
+    for the first time inside a capture, they raise. Host launches are
+    counted in total and by variant."""
     def fn():
         pass
     fn.launches = 4
     c = launches.counter(fn, torch.device("cpu"))
     assert launches.counter(fn, torch.device("cpu")) is c
-    c += 3
+    c[launches.variant_index(True, False)] += 3
     assert launches.runs(fn) == 3
+    assert launches.runs_by_variant(fn) == dict(default=0, fused=3, bf16=0,
+                                                fused_bf16=0)
+    launches.count_launch(fn, launches.variant_index(False, True))
+    assert fn.launches == 5 and fn.launches_by_variant == {"bf16": 1}
     ptr = c.data_ptr()
     launches.zero(fn)
     assert launches.runs(fn) == 0 and fn.launches == 0
+    assert fn.launches_by_variant == {}
     assert launches.counter(fn, torch.device("cpu")).data_ptr() == ptr
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
                         lambda: True)
