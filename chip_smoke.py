@@ -9,7 +9,11 @@ paths give it (K1 forward and K2 backward on two full-width tables, the
 bench view and a stopping table on which most tiles stop early, at CV 8
 and 40, K2 twice for a bitwise repeat; K3 the speed-of-light probe at the
 bench shape, one walk and card-wide, and on a table whose alphas span
-[1/255, 0.99]), counts the cells and (warp, record)
+[1/255, 0.99]; the pair emission E1 bitwise -- keys, gaussian ids and
+n_dropped_rect -- on the bench view, the stopping table, the bench
+training's 800,768-row table at K = 64 and the tile stripes, its expf,
+logf and sqrt against torch's on the exact cull's own inputs), counts the
+cells and (warp, record)
 pairs the tile kernels walk, find live and keep after their footprint
 cull, holds the kernel path's render gradients against the frozen golden
 fixtures, drives the main paths at full width -- `cli visualize` on
@@ -62,9 +66,11 @@ and the reference's numerics-changing raster settings
 (`variants_main_path`: bench.py's five forward candidates through
 `render`, K1's FUSED and BF16 and K2's BF16 variants against their plain
 versions, the bench training under the reference trainer's shipped
-settings) -- and checks that each went through its kernels: K1
-and K2 count their runs on the device too, so that the runs replayed from
-a CUDA graph, which the host does not launch, are counted. Prints one
+settings) -- and checks that each went through its kernels: K1,
+K2 and E1 count their runs on the device too, so that the runs replayed
+from a CUDA graph, which the host does not launch, are counted; E1 runs
+once per render, and `cli train` and the window call the plain emission
+never. Prints one
 JSON object per phase; the last line is `{"ok": true, "device": {...}}`.
 Any failure propagates and exits non-zero, as does a machine without
 CUDA. Imports nothing of JAX.
@@ -189,27 +195,36 @@ def launch_counts():
     return (composite_tiles, composite_tiles_bwd, sol_probe)
 
 
+def emit_kernel():
+    """E1's wrapper: it counts its launches and, on the device, its runs,
+    as K1 and K2 do."""
+    from dynamic3dgaussians_tpu_torch.ops.cuda.emit import emit_pairs_cuda
+    return emit_pairs_cuda
+
+
 def zero_launches():
     from dynamic3dgaussians_tpu_torch.ops.cuda import launches
     fwd, bwd, sol = launch_counts()
     launches.zero(fwd)
     launches.zero(bwd)
+    launches.zero(emit_kernel())
     sol.launches = 0
 
 
 def read_launches():
     fwd, bwd, sol = launch_counts()
     return {"raster_fwd": fwd.launches, "raster_bwd": bwd.launches,
-            "sol_probe": sol.launches}
+            "sol_probe": sol.launches, "emit_pairs": emit_kernel().launches}
 
 
 def read_runs():
-    """K1's and K2's runs counted by the kernels on the device since
+    """K1's, K2's and E1's runs counted by the kernels on the device since
     `zero_launches` (a device sync)."""
     from dynamic3dgaussians_tpu_torch.ops.cuda import launches
     fwd, bwd, _ = launch_counts()
     return {"raster_fwd": launches.runs(fwd),
-            "raster_bwd": launches.runs(bwd)}
+            "raster_bwd": launches.runs(bwd),
+            "emit_pairs": launches.runs(emit_kernel())}
 
 
 def read_variants():
@@ -685,6 +700,264 @@ def phase_k2(table, extra_key, device, smi):
     return rec
 
 
+# ------------------------------------------------------------------ E1
+
+# The emission kernel E1 against the plain emission (`ops/binning.py::
+# emit_pairs`), bitwise: tile keys, gaussian ids and n_dropped_rect equal.
+# Tables (`emit_tables`): the bench view (K = 8, enum_cap 16), the stopping
+# table (K = 16, enum_cap 32), the bench training's 800,768-row table at
+# K = 64, enum_cap 128 (its dead capacity rows included) and the tile
+# stripes' emission (the bench view padded to 640x384, no exact cull,
+# K = 8).
+EMIT_REPS = 20
+EMIT_TRAIN_K = 64
+EMIT_STRIPES = 4          # the world of the stripe tables checked
+# float32 operations of the cull per tested cell (ddx and ddy 5 each, d2 3,
+# the exponent 1, exp 1, times opacity 1, the gate 1) and per gaussian
+# (lam_min 6, dmax 8, nx and ny 12, the drop terms 4)
+EMIT_CELL_OPS = 17
+EMIT_GAUSS_OPS = 30
+
+
+def emit_projection(scene, cam):
+    """(projection, opacity zeroed where invalid) of a scene's rows."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.ops.projection import project
+    t = {k: torch.as_tensor(scene[k], device=cam.device)
+         for k in ("means", "opac", "scales", "quats")}
+    proj = project(t["means"], t["scales"], t["quats"], cam)
+    return proj, torch.where(proj.valid, t["opac"],
+                             torch.zeros_like(t["opac"]))
+
+
+def emit_tables(scene, device):
+    """name -> dict(cam, proj, op (None: no cull), k) of E1's tables."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.data.synthetic import (
+        init_point_cloud, make_dataset)
+    from dynamic3dgaussians_tpu_torch.models import gaussians as G
+    from dynamic3dgaussians_tpu_torch.ops.camera import make_camera
+    from dynamic3dgaussians_tpu_torch.ops.projection import project
+    out = {}
+    cam = bench_camera(device)
+    with torch.no_grad():
+        proj, op = emit_projection(scene, cam)
+        out["bench"] = dict(cam=cam, proj=proj, op=op, k=8)
+        proj, op = emit_projection(stop_scene(), cam)
+        out["stop"] = dict(cam=cam, proj=proj, op=op, k=STOP_K)
+        gt = bench_gt(scene)
+        ds, w2c, _ = make_dataset(gt, num_t=1, num_cams=TRAIN_CAMS, w=W, h=H,
+                                  f=F, radius=TRAIN_RADIUS, device=device)
+        params, variables = G.init_params(init_point_cloud(gt), w2c,
+                                          device=device)
+        act = G.activated(params, variables["alive"])
+        tcam = ds[0][0]["camera"]
+        proj = project(act["means3d"], act["scales"], act["rotations"], tcam)
+        op = torch.where(proj.valid, act["opacity"],
+                         torch.zeros_like(act["opacity"]))
+        alive = variables["alive"]
+        out["train_k64"] = dict(cam=tcam, proj=proj, op=op, k=EMIT_TRAIN_K,
+                                dead_rows=int((~alive).sum()),
+                                dead_on_screen=int((~alive & proj.valid)
+                                                   .sum()))
+        rows = -(-H // TILE)
+        w2c = np.eye(4)
+        w2c[2, 3] = 6.0
+        scam = make_camera(W, -(-rows // EMIT_STRIPES) * EMIT_STRIPES * TILE,
+                           [[F, 0, W / 2], [0, F, H / 2], [0, 0, 1]], w2c,
+                           device=device)
+        proj, _ = emit_projection(scene, scam)
+        out["stripe"] = dict(cam=scam, proj=proj, op=None, k=8)
+    return out
+
+
+def cull_terms(proj, op, grid_h, grid_w, enum_cap):
+    """What the plain emission's exact cull hands to exp, log and sqrt
+    (`ops/binning.py::emit_pairs`, the same ops), over the in-rect cells;
+    its bound per cell (enum_cap, N) and in-rect mask; and its division by
+    the Python scalar against E1's multiplication by the float32
+    reciprocal."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.ops.compositing import ALPHA_EPS
+    from dynamic3dgaussians_tpu_torch.ops.cuda.emit import (CULL_GATE,
+                                                            CULL_INV_GATE)
+    from dynamic3dgaussians_tpu_torch.ops.projection import tile_rect
+    tx0, ty0, tx1, _, raw = tile_rect(proj, TILE, TILE, grid_h, grid_w)
+    cc = torch.arange(enum_cap, dtype=torch.int32, device=op.device)[:, None]
+    rw = torch.clamp(tx1 - tx0, min=1)[None, :]
+    ty = ty0[None, :] + torch.div(cc, rw, rounding_mode="floor")
+    tx = tx0[None, :] + cc % rw
+    in_rect = cc < torch.clamp(raw, max=enum_cap)[None, :]
+    mid = 0.5 * (proj.conic_a + proj.conic_c)
+    dif = 0.5 * (proj.conic_a - proj.conic_c)
+    rad = dif * dif + proj.conic_b * proj.conic_b
+    lam = torch.clamp(mid - torch.sqrt(rad), min=0.0)
+    bx0 = (tx * TILE).to(torch.float32)
+    by0 = (ty * TILE).to(torch.float32)
+    x, y = proj.x2d[None, :], proj.y2d[None, :]
+    ddx = torch.clamp(torch.maximum(bx0 - x, x - (bx0 + (TILE - 1))),
+                      min=0.0)
+    ddy = torch.clamp(torch.maximum(by0 - y, y - (by0 + (TILE - 1))),
+                      min=0.0)
+    arg = -0.5 * lam[None, :] * (ddx * ddx + ddy * ddy)
+    bound = op[None, :] * torch.exp(arg)
+    safe_op = torch.clamp(op, min=ALPHA_EPS)
+    ratio = safe_op / (ALPHA_EPS * 0.999)
+    dmax_sq = 2.0 * torch.log(ratio) / torch.clamp(lam, min=1e-12)
+    return dict(
+        exp=arg[in_rect], log=ratio, sqrt=torch.cat([rad, dmax_sq]),
+        bound=bound, in_rect=in_rect, cells=int(in_rect.sum()),
+        div_is_reciprocal=torch.equal(ratio, safe_op * float(CULL_INV_GATE)),
+        div_true_differs=int((ratio != safe_op / torch.tensor(
+            float(CULL_GATE), device=op.device)).sum()))
+
+
+def bits_differ(a, b) -> int:
+    """Elements whose float32 bits differ, NaN against NaN not counted."""
+    import torch
+    both_nan = torch.isnan(a) & torch.isnan(b)
+    return int(((a.view(torch.int32) != b.view(torch.int32))
+                & ~both_nan).sum())
+
+
+def emit_against_plain(name, t, smi):
+    """E1 (`emit_pairs_cuda`) against `emit_pairs` on table `t`: equality
+    of keys, gaussian ids and drops; on the cull's tables the kernel's
+    expf, logf and sqrt against torch's on the cull's own inputs; ms of
+    each side (the wrapper, and the kernel alone on its prepared inputs)
+    and the kernel's bound. A mismatch records its first (slot, gaussian)
+    and that gaussian's plain bound nearest the gate."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.ops.binning import emit_pairs
+    from dynamic3dgaussians_tpu_torch.ops.cuda.emit import (
+        CULL_GATE, emit_math, emit_pairs_cuda, kernel_inputs, launch)
+    from dynamic3dgaussians_tpu_torch.tools.bench_sol import cuda_ms
+    cam, proj, op, k = t["cam"], t["proj"], t["op"], t["k"]
+    grid_h, grid_w = -(-cam.height // TILE), -(-cam.width // TILE)
+    enum_cap = max(16, 2 * k) if op is not None else 0
+    n = proj.depth.shape[0]
+    args = (proj, TILE, TILE, grid_h, grid_w, k)
+    kw = dict(opacity=op, enum_cap=enum_cap)
+    with torch.no_grad():
+        ms, (key, gid, drops) = cuda_ms(
+            lambda: emit_pairs_cuda(*args, **kw), EMIT_REPS, warmup=2)
+        plain_ms, (pkey, pgid, pdrops) = cuda_ms(
+            lambda: emit_pairs(*args, **kw), 3)
+        # the kernel alone, on its prepared inputs (the wrapper also runs
+        # tile_rect and builds the gaussian ids)
+        kin = kernel_inputs(*args, op, enum_cap)
+        out = torch.empty_like(key)
+        kernel_ms, _ = cuda_ms(
+            lambda: launch(kin, out, torch.zeros_like(drops)), EMIT_REPS,
+            warmup=2)
+        del kin, out
+        rec = dict(phase="emit_vs_plain", table=name, n=n, k_slots=k,
+                   enum_cap=enum_cap, cull=op is not None,
+                   max_abs_err=max(int((key - pkey).abs().max()),
+                                   abs(int(drops) - int(pdrops))),
+                   live_pairs=int((key < grid_h * grid_w).sum()),
+                   n_dropped_rect=int(drops),
+                   plain_n_dropped_rect=int(pdrops),
+                   keys_equal=torch.equal(key, pkey),
+                   gid_equal=torch.equal(gid, pgid),
+                   drops_equal=int(drops) == int(pdrops),
+                   ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms, card=smi,
+                   **{key_: t[key_] for key_ in ("dead_rows",
+                                                 "dead_on_screen")
+                      if key_ in t})
+        first = None
+        if not rec["keys_equal"]:
+            i = int(torch.nonzero(key != pkey)[0])
+            first = dict(slot=i // n, gaussian=i % n, kernel=int(key[i]),
+                         plain=int(pkey[i]))
+        cells = 0
+        if op is not None:
+            terms = cull_terms(proj, op, grid_h, grid_w, enum_cap)
+            cells = terms["cells"]
+            rec["math_bits_differ"] = {
+                fn: bits_differ(getattr(torch, fn)(terms[fn]),
+                                emit_math(terms[fn], fn))
+                for fn in ("exp", "log", "sqrt")}
+            rec["math_values"] = {fn: int(terms[fn].numel())
+                                  for fn in ("exp", "log", "sqrt")}
+            rec["div_is_reciprocal"] = terms["div_is_reciprocal"]
+            rec["div_true_differs"] = terms["div_true_differs"]
+            # how close the data comes to the gate
+            gap = (terms["bound"] - float(CULL_GATE)).abs()
+            gap = torch.where(terms["in_rect"], gap,
+                              torch.full_like(gap, float("inf")))
+            rec["min_gap_to_gate"] = float(gap.min())
+            if first is not None:
+                first["plain_bound_nearest_gate"] = float(
+                    gap[:, first["gaussian"]].min())
+            del terms, gap
+        rec["first_mismatch"] = first
+        rec.update(tested_cells=cells,
+                   **bound(EMIT_CELL_OPS * cells
+                           + (EMIT_GAUSS_OPS * n if op is not None else 0),
+                           n * 4 * (10 if op is not None else 4)
+                           + k * n * 4 + 4))
+    return rec
+
+
+def stripe_keys_equal(t, scene):
+    """`tile_shard.stripe_table`'s stripe-local keys of each of the
+    EMIT_STRIPES stripes (E1 inside) against the plain emission's,
+    localised the same way."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.ops.binning import emit_pairs
+    from dynamic3dgaussians_tpu_torch.ops.rasterize import RasterConfig
+    from dynamic3dgaussians_tpu_torch.parallel.tile_shard import stripe_table
+    cam, cfg = t["cam"], RasterConfig()
+    grid_h, grid_w = -(-cam.height // TILE), -(-cam.width // TILE)
+    args = [torch.as_tensor(scene[k], device=cam.device)
+            for k in ("means", "colors", "opac", "scales", "quats")]
+    tiles_local = grid_h // EMIT_STRIPES * grid_w
+    with torch.no_grad():
+        plain, _, _ = emit_pairs(t["proj"], TILE, TILE, grid_h, grid_w,
+                                 cfg.max_tiles_per_gaussian)
+        ok = []
+        for d in range(EMIT_STRIPES):
+            _, key_local, _, _ = stripe_table(cam, cfg, EMIT_STRIPES, d,
+                                              *args)
+            t0 = d * tiles_local
+            want = torch.where((plain >= t0) & (plain < t0 + tiles_local),
+                               plain - t0,
+                               torch.full_like(plain, tiles_local))
+            ok.append(torch.equal(key_local, want))
+    return ok
+
+
+def phase_emit(scene, device, smi):
+    """E1 against the plain emission on every table of `emit_tables`."""
+    import torch
+    recs = {}
+    for name, t in emit_tables(scene, device).items():
+        rec = emit_against_plain(name, t, smi)
+        if name == "stripe":
+            rec["stripe_table_keys_equal"] = stripe_keys_equal(t, scene)
+        emit(rec)
+        recs[name] = rec
+        del t
+        torch.cuda.empty_cache()
+    bad = []
+    for name, r in recs.items():
+        if not (r["keys_equal"] and r["gid_equal"] and r["drops_equal"]):
+            print(f"emit_vs_plain {name}: E1 differs from the plain "
+                  f"emission: first mismatch {r['first_mismatch']}, drops "
+                  f"{r['n_dropped_rect']} / {r['plain_n_dropped_rect']}",
+                  flush=True)
+            bad.append(name)
+        if r["cull"] and (any(r["math_bits_differ"].values())
+                          or not r["div_is_reciprocal"]):
+            bad.append(f"{name} math")
+        if not all(r.get("stripe_table_keys_equal", [True])):
+            bad.append(f"{name} stripe_table")
+    if bad:
+        raise AssertionError(f"emit_vs_plain failed: {bad}")
+    return recs
+
+
 def phase_grad_golden(device):
     """The kernel path's render gradients against the frozen fixtures."""
     import glob
@@ -832,8 +1105,8 @@ def phase_main_path(scene, device, smi):
             path, os.path.join(tmp, "orbit.gif"))
         stacked = load_params(path)
     if launches["raster_fwd"] != n_frames or launches["raster_bwd"] or \
-            launches["sol_probe"]:
-        raise AssertionError(f"cli visualize launched K1 / K2 / K3 "
+            launches["sol_probe"] or launches["emit_pairs"] != n_frames:
+        raise AssertionError(f"cli visualize launched K1 / K2 / K3 / E1 "
                              f"{launches} times for {n_frames} frames")
 
     center = stacked["means3D"].reshape(-1, 3).mean(0)
@@ -990,7 +1263,7 @@ def train_bench(scene, device, tmp, radius=TRAIN_RADIUS, method=None,
     cli.main(argv)
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
-    launches = read_launches()
+    launches, runs = read_launches(), read_runs()
     run = os.path.join(tmp, "out", "smoke", seq)
     path = os.path.join(run, "params.npz")
     if not os.path.exists(path):
@@ -1048,7 +1321,7 @@ def train_bench(scene, device, tmp, radius=TRAIN_RADIUS, method=None,
         cmd="cli train " + " ".join(flags),
         radius=radius, method=method or "auto", config=over,
         n_gaussians=int(pt_cld.shape[0]), cameras=TRAIN_CAMS, w=W, h=H,
-        launches=launches,
+        launches=launches, runs=runs,
         densify=[dict(i=r["step"], n_alive=r["t0/densify/n_alive"],
                       n_cloned=r["t0/densify/n_cloned"],
                       n_split=r["t0/densify/n_split"],
@@ -1074,9 +1347,10 @@ def phase_train_main_path(scene, device, smi, tmp):
     run's own per-step log; the first step of each timestep is not timed,
     and the three steps that end in a checkpoint save are left out
     (`ckpt_main_path` reports the saves' seconds)."""
-    with checkpoint_calls() as calls:
+    with checkpoint_calls() as calls, plain_emission_calls() as plain:
         rec = train_bench(scene, device, tmp, checkpoint_every=CKPT_EVERY)
     rec["checkpoint_calls"] = calls
+    rec["plain_emission_calls"] = plain[0]
     per_t = rec["timesteps"]
     medians = [ts["step_ms_median_by_k"].get(str(ts["final_k"]))
                for ts in per_t]
@@ -1115,6 +1389,13 @@ def phase_train_main_path(scene, device, smi, tmp):
     if launches["raster_fwd"] < total_steps or launches["sol_probe"]:
         raise AssertionError(f"cli train launched K1 / K3 {launches} times "
                              f"in {total_steps} steps")
+    # E1 once per render, before its K1, each launch a run on the device;
+    # the plain emission never
+    if launches["emit_pairs"] != launches["raster_fwd"] or \
+            rec["runs"]["emit_pairs"] != launches["emit_pairs"] or \
+            rec["plain_emission_calls"]:
+        raise AssertionError(f"cli train launched E1 {launches} times, the "
+                             f"plain emission {rec['plain_emission_calls']}")
     if len(densify) != 2 or not rec["graph"] or \
             rec["n_out"] != densify[-1]["n_alive"]:
         raise AssertionError(f"densify / graph / output rows: {rec}")
@@ -1171,6 +1452,30 @@ def checkpoint_calls():
         yield calls
     finally:
         M.save, M.load = save, load
+
+
+@contextlib.contextmanager
+def plain_emission_calls():
+    """Counts the calls of the plain emission (`ops/binning.py::
+    emit_pairs`) through every port module that holds it, while active: on
+    a kernel path E1 runs instead, so the count must stay 0."""
+    from dynamic3dgaussians_tpu_torch.ops import binning
+    plain, calls = binning.emit_pairs, [0]
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return plain(*a, **kw)
+
+    mods = [m for name, m in list(sys.modules.items())
+            if name.startswith("dynamic3dgaussians_tpu_torch")
+            and getattr(m, "emit_pairs", None) is plain]
+    for m in mods:
+        m.emit_pairs = counted
+    try:
+        yield calls
+    finally:
+        for m in mods:
+            m.emit_pairs = plain
 
 
 def copy_run(src_root, dst_root, keep_steps):
@@ -1426,9 +1731,11 @@ def phase_evaluate_main_path(train_rec, device, smi):
     checks = {
         "views": n_views == want and summary["n_views"] == want,
         "evaluate launches": runs["evaluate"]["launches"] == {
-            "raster_fwd": want, "raster_bwd": 0, "sol_probe": 0},
+            "raster_fwd": want, "raster_bwd": 0, "sol_probe": 0,
+            "emit_pairs": want},
         "suite launches": runs["evaluate_suite"]["launches"] == {
-            "raster_fwd": 2 * want, "raster_bwd": 0, "sol_probe": 0},
+            "raster_fwd": 2 * want, "raster_bwd": 0, "sol_probe": 0,
+            "emit_pairs": 2 * want},
         "suite": suite_line["n_scenes"] == 2 and set(suite) == {
             "scenes", "mean", "rows"},
         "finite": np.isfinite([summary["psnr"], summary["ssim"]]).all(),
@@ -1509,7 +1816,7 @@ def phase_tracking(train_rec, device, smi):
     emit(rec)
     checks = {
         "launches": launches == {"raster_fwd": 1, "raster_bwd": 0,
-                                 "sol_probe": 0},
+                                 "sol_probe": 0, "emit_pairs": 1},
         "shape": tuple(tracks.shape) == (TRAIN_T, TRACK_QUERIES, 2),
         "finite": bool(torch.isfinite(tracks).all()),
         "kernel vs plain": err <= TRACK_TOL_PX,
@@ -1686,7 +1993,7 @@ def phase_probe_main_path(k3, device, smi):
     # the same on the card-wide table
     want = len(KINDS) * 2 * (2 + bench_sol.ITERS)
     if rc != 0 or launches["sol_probe"] != want or launches["raster_fwd"] \
-            or launches["raster_bwd"]:
+            or launches["raster_bwd"] or launches["emit_pairs"]:
         raise AssertionError(f"the probe returned {rc} and launched "
                              f"{launches}, not K3 {want} times")
     for kind in KINDS:
@@ -1818,7 +2125,8 @@ def phase_playback_main_path(scene, device, smi):
     """Cached-order playback at the bench view (200k gaussians, RGB + 3 seg
     channels, CV 8): `build_cache` at a key frame, then `render_playback`
     at 8 cameras 0.0025 apart along x, the launch counts set to 0 just
-    before and read just after (K1 once per frame, none in build_cache).
+    before and read just after (K1 once per frame, none in build_cache;
+    E1 once, in build_cache).
     The cache's order against the exact render's emission and sort; frame
     0 (a fresh cache) against the exact kernel render; a cache 0.01 stale
     by PSNR; the last frame's record table through K1 against K1's plain
@@ -1828,7 +2136,7 @@ def phase_playback_main_path(scene, device, smi):
     cached frame, the exact frame (`render`, method cuda), on tensors on
     the card. Then `cli visualize --resort-every 8` on `main_path`'s
     checkpoint: a timestep per frame, so every frame is a key frame, K1
-    once per frame."""
+    and E1 once per frame."""
     import torch
     from dynamic3dgaussians_tpu_torch.ops.compositing import ALPHA_EPS
     from dynamic3dgaussians_tpu_torch.ops.cuda.raster_fwd import (
@@ -1863,7 +2171,7 @@ def phase_playback_main_path(scene, device, smi):
     build_launches = read_launches()
     outs = [cached(cam, cache) for cam in cams]
     torch.cuda.synchronize()
-    launches = read_launches()
+    launches, runs = read_launches(), read_runs()
 
     fresh, ref = outs[0], exact(cams[0])
     kw = dict(num_tiles=cache.starts.shape[0], grid_w=-(-W // TILE),
@@ -1976,7 +2284,7 @@ def phase_playback_main_path(scene, device, smi):
         phase="playback_main_path", n_gaussians=N_GAUSS, cv=rec_t.shape[0] - 8,
         frames=PB_FRAMES, step=PB_STEP, n_live=int(cache.gidx.shape[0]),
         ne_pad=rec_t.shape[1], n_dropped_rect=int(cache.n_dropped_rect),
-        build_cache_launches=build_launches, launches=launches,
+        build_cache_launches=build_launches, launches=launches, runs=runs,
         order=order, f32_order_vs_exact=f32_order_vs_exact,
         err_fresh_vs_exact=err_fresh, bound_excess=excess,
         gate_flip_pixels=int(flip.sum()),
@@ -1997,10 +2305,15 @@ def phase_playback_main_path(scene, device, smi):
                  k1_depth=ATOL_DEPTH),
         card=smi)
     emit(rec)
-    none = {"raster_fwd": 0, "raster_bwd": 0, "sol_probe": 0}
+    none = {"raster_fwd": 0, "raster_bwd": 0, "sol_probe": 0,
+            "emit_pairs": 0}
     checks = {
-        "build_cache launches nothing": build_launches == none,
-        "K1 once per frame": launches == dict(none, raster_fwd=PB_FRAMES),
+        "build_cache launches E1 once, no K1": build_launches == dict(
+            none, emit_pairs=1),
+        "K1 once per frame": launches == dict(none, raster_fwd=PB_FRAMES,
+                                              emit_pairs=1),
+        "device runs as launched": runs == dict(
+            raster_fwd=PB_FRAMES, raster_bwd=0, emit_pairs=1),
         "cache segments equal the exact render's": same_segments,
         "same gaussian ids per tile": same_ids,
         "cached order sorted by the float-bits key":
@@ -2013,8 +2326,8 @@ def phase_playback_main_path(scene, device, smi):
         "K1 vs plain on the playback table": err_k1["ok"],
         "finite": bool(all(torch.isfinite(o.rgb).all() for o in outs)),
         "no drops": int(cache.n_dropped_rect) == 0,
-        "visualize K1 once per frame": vis_launches == dict(
-            none, raster_fwd=MAIN_FRAMES),
+        "visualize K1 and E1 once per frame": vis_launches == dict(
+            none, raster_fwd=MAIN_FRAMES, emit_pairs=MAIN_FRAMES),
     }
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
@@ -2231,7 +2544,8 @@ def phase_view_main_path(train_rec, device, smi):
                  playback_psnr_db=PB_STALE_PSNR_MIN),
         card=smi)
     emit(rec)
-    none = {"raster_fwd": 0, "raster_bwd": 0, "sol_probe": 0}
+    none = {"raster_fwd": 0, "raster_bwd": 0, "sol_probe": 0,
+            "emit_pairs": 0}
     builds = [h["builds"] for h in http]
     checks = {
         "page and meta": status_page == (200, "text/html")
@@ -2239,8 +2553,10 @@ def phase_view_main_path(train_rec, device, smi):
         "frames": all(h["status"] == 200 and h["ctype"] == "image/jpeg"
                       for h in http)
         and all(e["shape"] == [H, W, 3] for e in frame_err),
-        "K1 once per render": launches == dict(
+        "K1 once per render": dict(launches, emit_pairs=0) == dict(
             none, raster_fwd=rendered + GUI_REQUESTS + BRIDGE_REQUESTS),
+        # E1 in the playback caches' key frames and the exact renders
+        "E1 ran": launches["emit_pairs"] > 0,
         "cached frames": builds[-2] - builds[4] < VIEW_STEPS,
         "jump rebuilds": builds[-1] == builds[-2] + 1,
         "lru": max(h["lru"] for h in http) <= 4,
@@ -2699,7 +3015,7 @@ def phase_feature_main_path(scene, device, smi, tmp):
     emit(rec)
     for r in (run1, run2):
         want = dict(raster_fwd=r["steps"], raster_bwd=r["steps"],
-                    sol_probe=0)
+                    sol_probe=0, emit_pairs=r["steps"])
         if r["launches"] != want:
             raise AssertionError(f"the feature trainer launched "
                                  f"{r['launches']} in {r['steps']} steps")
@@ -2850,7 +3166,8 @@ def phase_ego_main_path(scene, device, smi):
     emit(rec)
     want_steps = EGO_STEPS + (EGO_T - 1) * EGO_STEPS_LATER
     want = dict(raster_fwd=EGO_RENDERS * want_steps,
-                raster_bwd=EGO_RENDERS * want_steps, sol_probe=0)
+                raster_bwd=EGO_RENDERS * want_steps, sol_probe=0,
+                emit_pairs=EGO_RENDERS * want_steps)
     if total != want_steps or launches != want:
         raise AssertionError(f"train_ego launched {launches} in {total} "
                              f"steps; expected {want}")
@@ -3326,14 +3643,15 @@ def phase_motion_main_path(scene, device, smi, tmp):
     emit(rec)
     for r in runs:
         want = dict(raster_fwd=r["steps"], raster_bwd=r["steps"],
-                    sol_probe=0)
+                    sol_probe=0, emit_pairs=r["steps"])
         if r["launches"] != want:
             raise AssertionError(f"{r['name']}: launched {r['launches']} in "
                                  f"{r['steps']} steps")
     if [r["steps"] for r in runs] != [MOTION_STEPS, MOTION_TRACK_STEPS,
                                       MOTION_WINDOW_STEPS]:
         raise AssertionError(f"steps per run: {runs}")
-    if flow["launches"] != dict(raster_fwd=1, raster_bwd=0, sol_probe=0):
+    if flow["launches"] != dict(raster_fwd=1, raster_bwd=0, sol_probe=0,
+                                emit_pairs=1):
         raise AssertionError(f"render_flow launched {flow['launches']}")
     if not pinned:
         raise AssertionError("posed_gaussians moved background rows")
@@ -3634,7 +3952,8 @@ def par_dp(spec, reduce, ref, dev, pmean_snaps=None):
                            for key, v in getattr(full, m_).items()}
                 del full
     launches = read_launches()
-    rec = dict(launches=launches, ms=ms, ms_median=float(np.median(ms[1:])),
+    rec = dict(launches=launches, runs=read_runs(), ms=ms,
+               ms_median=float(np.median(ms[1:])),
                losses=losses, psnr_1=psnr_1, n_dropped_1=dropped_1,
                loss_rel_err_1=abs(losses[0] - ref["losses"][0])
                / abs(ref["losses"][0]),
@@ -3690,7 +4009,7 @@ def par_shard(spec, kind, ref, dev):
         torch.cuda.synchronize()
         launches = read_launches()
         want = ref[kind, mode]
-        r = dict(launches=launches,
+        r = dict(launches=launches, runs=read_runs(),
                  rgb_err=float((img["rgb"] - want["rgb"]).abs().max()),
                  alpha_err=float((img["alpha"] - want["alpha"]).abs().max()),
                  depth_err=float((img["depth"] - want["depth"]).abs().max()),
@@ -3737,8 +4056,8 @@ def _parallel_rank(rank, world, spec):
 
 def par_failures(mode, r, spec, world):
     """The gates one rank's record of `mode` fails in a run of `world`
-    ranks. K1 and K2 launch exactly once per camera and step in DP, and
-    once per sharded render and gradient."""
+    ranks. K1, K2 and E1 launch exactly once per camera and step in DP,
+    and once per sharded render and gradient."""
     tol, steps, bad = spec["tol"], spec["steps"], []
     if mode.startswith("dp_"):
         need = steps * len(spec["frames"]) // world
@@ -3753,7 +4072,7 @@ def par_failures(mode, r, spec, world):
                     "vs_pmean_ratio_1", "vs_pmean_ratio_last"):
             if key in r:
                 checks.append((key, max(r[key].values()) <= 1.0))
-        launches = [r["launches"]]
+        launches, runs = [r["launches"]], [r["runs"]]
     else:
         need = 1
         t = r["total"]
@@ -3763,9 +4082,11 @@ def par_failures(mode, r, spec, world):
                   ("grad_rel_err",
                    max(t["grad_rel_err"].values()) <= tol["grad_rel"])]
         launches = [r["total"]["launches"], r["quantized"]["launches"]]
-    for la in launches:
+        runs = [r["total"]["runs"], r["quantized"]["runs"]]
+    for la, ru in zip(launches, runs):
         checks.append(("launches", la["raster_fwd"] == need
-                       and la["raster_bwd"] == need))
+                       and la["raster_bwd"] == need
+                       and la["emit_pairs"] == ru["emit_pairs"] == need))
     bad += [name for name, ok in checks if not ok]
     return bad
 
@@ -3784,7 +4105,9 @@ def phase_parallel_main_path(scene, device, smi):
     mode. One line per mode and run."""
     import torch
     from dynamic3dgaussians_tpu_torch.parallel import mesh
-    totals = {"raster_fwd": 0, "raster_bwd": 0, "sol_probe": 0}
+    totals = {"raster_fwd": 0, "raster_bwd": 0, "sol_probe": 0,
+              "emit_pairs": 0}
+    run_totals = {"raster_fwd": 0, "raster_bwd": 0, "emit_pairs": 0}
     with tempfile.TemporaryDirectory() as tmp:
         spec = par_spec(scene, device, tmp)
         t0 = time.perf_counter()
@@ -3831,14 +4154,15 @@ def phase_parallel_main_path(scene, device, smi):
                 if bad:
                     failures.append((backend, world, mode, bad))
                 for r in per:
-                    for la in ([r["launches"]] if mode.startswith("dp_")
-                               else [r["total"]["launches"],
-                                     r["quantized"]["launches"]]):
+                    for rr in ([r] if mode.startswith("dp_")
+                               else [r["total"], r["quantized"]]):
                         for key in totals:
-                            totals[key] += la[key]
+                            totals[key] += rr["launches"][key]
+                        for key in run_totals:
+                            run_totals[key] += rr["runs"][key]
     if failures:
         raise AssertionError(f"parallel_main_path failed: {failures}")
-    return dict(launches=totals, records=recs)
+    return dict(launches=totals, runs=run_totals, records=recs)
 
 
 # The long-run tools (`dynamic3dgaussians_tpu_torch/tools/`) at their full
@@ -3959,6 +4283,7 @@ def longrun_dynamic(device, tmp):
     # step, two per timestep's split; K2: one per step
     want = dict(raster_fwd=d["timesteps"] * d["cams"] + n_steps
                 + 2 * d["timesteps"], raster_bwd=n_steps, sol_probe=0)
+    want["emit_pairs"] = want["raster_fwd"]       # E1 once per render
     return dict(args=vars(args), log=log, run_s=run_s, launches=launches,
                 launches_want=want, step_ms=step_ms, grow_tiles=st["grow"],
                 rect_split=st["splits"], record_table=table,
@@ -4002,6 +4327,7 @@ def longrun_dynamic_window(dyn, device, tmp):
     n_steps = d["iters0"] + (d["timesteps"] - 1) * d["iters"]
     want_runs = dict(raster_fwd=d["timesteps"] * d["cams"] + n_steps,
                      raster_bwd=n_steps)
+    want_runs["emit_pairs"] = want_runs["raster_fwd"]
     return dict(args=vars(args), run_s=run_s, launches=launches, runs=runs,
                 runs_want=want_runs,
                 params_not_bitwise=not_bitwise,
@@ -4083,6 +4409,7 @@ def longrun_scale(device, tmp):
     # K1: the dataset's renders, one per step, two per report's split
     want = dict(raster_fwd=d["cams"] + d["iters"] + 2 * n_reports,
                 raster_bwd=d["iters"], sol_probe=0)
+    want["emit_pairs"] = want["raster_fwd"]       # E1 once per render
     return dict(args=vars(args), log=log, run_s=run_s, launches=launches,
                 launches_want=want)
 
@@ -4105,6 +4432,7 @@ def longrun_roundtrip(device, tmp):
     # cameras of each timestep)
     want = dict(raster_fwd=T * cams + n_steps + T + 24 + T * min(cams, 4),
                 raster_bwd=n_steps, sol_probe=0)
+    want["emit_pairs"] = want["raster_fwd"]       # E1 once per render
     return dict(args=vars(args), summary=summary, run_s=run_s,
                 launches=launches, launches_want=want)
 
@@ -4187,12 +4515,12 @@ def phase_longrun_main_path(device, smi):
         "window run params bitwise": not dyn_w["params_not_bitwise"],
         "window run reports equal": dyn_w["reports_equal"],
         "window run per-timestep equal": dyn_w["per_timestep_equal"],
-        "window run K1/K2 runs": dyn_w["runs"] == dyn_w["runs_want"],
+        "window run K1/K2/E1 runs": dyn_w["runs"] == dyn_w["runs_want"],
         "window run replayed": all(
             0 < dyn_w["launches"][k] < dyn_w["runs"][k]
-            for k in ("raster_fwd", "raster_bwd")),
+            for k in ("raster_fwd", "raster_bwd", "emit_pairs")),
         "tracking launches": track["launches"] == dict(
-            raster_fwd=0, raster_bwd=0, sol_probe=0),
+            raster_fwd=0, raster_bwd=0, sol_probe=0, emit_pairs=0),
         "tracking finite": all(np.isfinite(m) for m in metrics),
         "tracking beats still tracks":
             res["pck_0.05"] > track["pck_still"],
@@ -4473,8 +4801,11 @@ def phase_window_main_path(scene, device, smi):
     state = (params, optim.init(params), variables)
     torch.cuda.synchronize()
     seconds = dict(setup=time.perf_counter() - t_start)
-    points, launches = {}, dict(raster_fwd=0, raster_bwd=0, sol_probe=0)
-    runs = dict(raster_fwd=0, raster_bwd=0)
+    points, launches = {}, dict(raster_fwd=0, raster_bwd=0, sol_probe=0,
+                                emit_pairs=0)
+    runs = dict(raster_fwd=0, raster_bwd=0, emit_pairs=0)
+    plain_calls = contextlib.ExitStack()
+    plain = plain_calls.enter_context(plain_emission_calls())
     for name, k in WIN_POINTS:
         t0 = time.perf_counter()
         if name != "t0":
@@ -4503,12 +4834,14 @@ def phase_window_main_path(scene, device, smi):
               f"{rec['window_ms_per_step']:.2f} ms/step (idle "
               f"{rec['window_profile']['device_idle_share']}), capture "
               f"{rec['capture_ms']:.1f} ms; {smi}", flush=True)
+    plain_calls.close()
     out = dict(phase="window_main_path", card=smi, steps=WIN_STEPS,
-               points=points, seconds=seconds,
+               points=points, seconds=seconds, plain_emission_calls=plain[0],
                phase_s=time.perf_counter() - t_start)
     emit(out)
-    want_runs = dict(raster_fwd=WIN_STEPS, raster_bwd=WIN_STEPS)
-    checks = {}
+    want_runs = dict(raster_fwd=WIN_STEPS, raster_bwd=WIN_STEPS,
+                     emit_pairs=WIN_STEPS)
+    checks = {"no plain emission": plain[0] == 0}
     for name, rec in points.items():
         st = rec["stats_first"]
         host = st["eager_steps"] + st["captures"]
@@ -4518,7 +4851,7 @@ def phase_window_main_path(scene, device, smi):
         checks[f"{name} drops equal"] = rec["drops_equal"]
         checks[f"{name} runs"] = rec["runs"] == want_runs
         checks[f"{name} host launches"] = rec["launches"] == dict(
-            raster_fwd=host, raster_bwd=host, sol_probe=0)
+            raster_fwd=host, raster_bwd=host, sol_probe=0, emit_pairs=host)
         checks[f"{name} eager runs"] = rec["eager_runs"] == want_runs and \
             rec["eager_launches"] == dict(want_runs, sol_probe=0)
         checks[f"{name} static table"] = rec["table"]["bitwise_eager"]
@@ -4599,6 +4932,7 @@ def var_candidates(scene, device, smi):
                          device=device)
             torch.cuda.synchronize()
             launches, variants = read_launches(), read_variants()
+            runs = read_runs()
             proj = project(t["means"], t["scales"], t["quats"], cam)
             op = torch.where(proj.valid, t["opac"],
                              torch.zeros_like(t["opac"]))
@@ -4616,7 +4950,7 @@ def var_candidates(scene, device, smi):
         imgs[name] = (img.rgb, img.alpha)
         out[name] = dict(config=over, n_dropped_rect=drops,
                          disqualified=drops > 0, launches=launches,
-                         variants=variants,
+                         runs=runs, variants=variants,
                          n_pairs=int(counts.sum()), k1_vs_plain=errs,
                          k1_ms=k1_ms, frame_ms=[])
         del rec_t, starts, counts, proj, op
@@ -4941,15 +5275,21 @@ def phase_variants_main_path(scene, device, smi):
     by_var = {kern: {v: sum(r[kern]["runs"][v] for r in recs)
                      for v in VARIANTS}
               for kern in ("raster_fwd", "raster_bwd")}
-    launches = dict(raster_fwd=sum(by_var["raster_fwd"].values()),
-                    raster_bwd=sum(by_var["raster_bwd"].values()),
-                    sol_probe=0)
+    e1_runs = sum(r["runs"]["emit_pairs"] for r in list(cands.values())
+                  + [bf16] + [pt[label] for pt in train.values()
+                              for label in ("train_ship", "default")])
+    runs = dict(raster_fwd=sum(by_var["raster_fwd"].values()),
+                raster_bwd=sum(by_var["raster_bwd"].values()),
+                emit_pairs=e1_runs)
+    launches = dict(runs, sol_probe=0)
     out["launches_by_variant"] = by_var
     emit(out)
     checks = {}
     for name, rec in cands.items():
         checks[f"{name} K1 vs plain"] = rec["k1_vs_plain"]["ok"]
         checks[f"{name} one K1 launch"] = rec["launches"]["raster_fwd"] == 1
+        checks[f"{name} one E1 launch"] = (rec["launches"]["emit_pairs"]
+                                           == rec["runs"]["emit_pairs"] == 1)
         # fast_fused runs the FUSED instantiation; pack_records, chunk and
         # power_impl "mxu" change the table, not the kernel
         checks[f"{name} K1 instantiation"] = only_variant(
@@ -4971,7 +5311,8 @@ def phase_variants_main_path(scene, device, smi):
         for kern in ("k1_bf16", "k1_fused_bf16", "k2_bf16"):
             if kern in rec:
                 checks[f"{key} {kern} vs plain"] = rec[kern]["vs_plain"]["ok"]
-    per_step = dict(raster_fwd=VAR_STEPS, raster_bwd=VAR_STEPS)
+    per_step = dict(raster_fwd=VAR_STEPS, raster_bwd=VAR_STEPS,
+                    emit_pairs=VAR_STEPS)
     for name, pt in train.items():
         for label in ("train_ship", "default"):
             r = pt[label]
@@ -4990,8 +5331,8 @@ def phase_variants_main_path(scene, device, smi):
             and max(fs["grad_rel_err"].values()) <= VAR_GRAD_REL
             and max(fs["grad_rel_to_group_max"].values()) <= VAR_GRAD_REL)
     checks["bf16 render launches"] = bf16["launches"] == dict(
-        raster_fwd=1, raster_bwd=1, sol_probe=0) and bf16["runs"] == dict(
-        raster_fwd=1, raster_bwd=1)
+        raster_fwd=1, raster_bwd=1, sol_probe=0, emit_pairs=1) and \
+        bf16["runs"] == dict(raster_fwd=1, raster_bwd=1, emit_pairs=1)
     checks["bf16 render instantiations"] = (
         only_variant(bf16["variants"], "raster_fwd", "bf16", 1)
         and only_variant(bf16["variants"], "raster_bwd", "bf16", 1))
@@ -4999,8 +5340,8 @@ def phase_variants_main_path(scene, device, smi):
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         raise AssertionError(f"variants_main_path failed: {bad}")
-    return dict(launches=launches, by_variant=out["launches_by_variant"],
-                record=out)
+    return dict(launches=launches, runs=runs,
+                by_variant=out["launches_by_variant"], record=out)
 
 
 def floor_rec(k1, k2, k3, train_launches, smi):
@@ -5063,6 +5404,7 @@ def main() -> int:
             rec = phase_k2(table, extra_key, device, smi)
             k2[table, rec["cv"]] = rec
     scene = bench_scene()
+    e1 = phase_emit(scene, device, smi)
     k3 = phase_k3(device, smi)
     phase_oracle(device)
     phase_grad_golden(device)
@@ -5101,13 +5443,16 @@ def main() -> int:
              ("parallel", par_rec), ("longrun", longrun_rec),
              ("window", window_rec), ("variants", variants_rec))
     by_path = {name: {p: r["launches"][name] for p, r in paths}
-               for name in ("raster_fwd", "raster_bwd", "sol_probe")}
-    # runs counted by the kernels on the device, replays included, in the
-    # paths that replay a CUDA graph of the train step (longrun: its
-    # --steps_per_call run)
+               for name in ("raster_fwd", "raster_bwd", "sol_probe",
+                            "emit_pairs")}
+    # runs counted by the kernels on the device, replays included (the
+    # window and longrun's --steps_per_call run replay a CUDA graph of the
+    # train step)
     runs_by_path = {name: {p: r["runs"][name] for p, r in (
-                        ("longrun", longrun_rec), ("window", window_rec))}
-                    for name in ("raster_fwd", "raster_bwd")}
+                        ("train", train_rec), ("playback", pb_rec),
+                        ("parallel", par_rec), ("longrun", longrun_rec),
+                        ("window", window_rec), ("variants", variants_rec))}
+                    for name in ("raster_fwd", "raster_bwd", "emit_pairs")}
     wide = k3["stream_compute/card_wide"]
     var = variants_rec["record"]["kernels"]
     by_var = variants_rec["by_variant"]
@@ -5175,7 +5520,31 @@ def main() -> int:
              max_rel_err={n: e["err_rel"] for n, e in wide["errors"].items()},
              ms=wide["ms"], plain_ms=wide["plain_ms"],
              bound_ms=wide["bound_ms"], bound_by=wide["bound_by"],
-             library_ms=None)] + variant_lines})
+             library_ms=None),
+        # E1 at the bench training's K = 64 table (the t > 0 steps and the
+        # end of every t = 0), the kernel alone on its prepared inputs
+        # (wrapper_ms: with tile_rect and the gaussian ids, as the path
+        # calls it), and at the bench view's K = 8; bitwise the plain
+        # emission on every table of `phase_emit`
+        dict(name="emit_pairs", route="cuda",
+             source="dynamic3dgaussians_tpu_torch/csrc/emit.cu",
+             replaces="dynamic3dgaussians_tpu/ops/binning.py:44",
+             launches=train_rec["launches"]["emit_pairs"],
+             launches_by_path=by_path["emit_pairs"],
+             runs_by_path=runs_by_path["emit_pairs"],
+             max_abs_err=max(r["max_abs_err"] for r in e1.values()),
+             ms=e1["train_k64"]["kernel_ms"],
+             wrapper_ms=e1["train_k64"]["ms"],
+             plain_ms=e1["train_k64"]["plain_ms"],
+             bound_ms=e1["train_k64"]["bound_ms"],
+             bound_by=e1["train_k64"]["bound_by"], library_ms=None,
+             k_slots=EMIT_TRAIN_K, enum_cap=e1["train_k64"]["enum_cap"],
+             bench_k8=dict(ms=e1["bench"]["kernel_ms"],
+                           wrapper_ms=e1["bench"]["ms"],
+                           plain_ms=e1["bench"]["plain_ms"],
+                           bound_ms=e1["bench"]["bound_ms"],
+                           bound_by=e1["bench"]["bound_by"]))]
+        + variant_lines})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -109,6 +109,7 @@ def load_library() -> ctypes.CDLL:
     path, _ = build()
     lib = ctypes.CDLL(str(path))
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    f32 = ctypes.c_float
     lib.d3g_raster_fwd.argtypes = [vp, i64, i32, vp, vp, i32, i32, i32, i32,
                                    i32, i32, vp, vp, vp, vp, vp]
     lib.d3g_raster_fwd.restype = i32
@@ -117,6 +118,11 @@ def load_library() -> ctypes.CDLL:
     lib.d3g_raster_bwd.restype = i32
     lib.d3g_sol_probe.argtypes = [vp, i64, i32, i32, vp, vp]
     lib.d3g_sol_probe.restype = i32
+    lib.d3g_emit_pairs.argtypes = ([vp] * 10 + [i32] * 8 + [f32] * 7
+                                   + [vp] * 4)
+    lib.d3g_emit_pairs.restype = i32
+    lib.d3g_emit_math.argtypes = [vp, i64, i32, vp, vp]
+    lib.d3g_emit_math.restype = i32
     lib.d3g_error_string.argtypes = [i32]
     lib.d3g_error_string.restype = ctypes.c_char_p
     return lib

@@ -5,8 +5,10 @@ Port of `dynamic3dgaussians_tpu/ops/binning.py` (`emit_pairs`,
 `max_tiles_per_gaussian` emission slots, laid out k-major (slot = k * N +
 gaussian), with `num_tiles` as the sentinel of an unused slot. Keeping the
 K slots means `n_dropped_rect` counts the same drops as the reference:
-pairs that a gaussian's K slots could not hold. `bin_gaussians` feeds the
-plain "tiled" render path, with the reference's fixed pair capacity.
+pairs that a gaussian's K slots could not hold. `emit_pairs` is the plain
+version of the emission kernel E1 (`ops/cuda/emit.py::emit_pairs_cuda`),
+which the kernel paths run on the card. `bin_gaussians` feeds the plain
+"tiled" render path, with the reference's fixed pair capacity.
 """
 
 from __future__ import annotations
@@ -26,6 +28,12 @@ class TileBins(NamedTuple):
     num_pairs: torch.Tensor      # () int32 pairs emitted, before the cap
     n_dropped_capacity: torch.Tensor  # () int32 pairs past pair_capacity
     n_dropped_rect: torch.Tensor      # () int32 pairs past the K slots
+
+
+def slot_gaussian_ids(n: int, k_cap: int, device) -> torch.Tensor:
+    """(K*N,) int32 gaussian id of each k-major emission slot."""
+    return torch.arange(n, dtype=torch.int32, device=device).expand(
+        k_cap, n).reshape(-1)
 
 
 def emit_pairs(proj: Projected, tile_h: int, tile_w: int, grid_h: int,
@@ -48,7 +56,7 @@ def emit_pairs(proj: Projected, tile_h: int, tile_w: int, grid_h: int,
     i32 = torch.int32
     tx0, ty0, tx1, ty1, raw_count = tile_rect(proj, tile_h, tile_w,
                                               grid_h, grid_w)
-    gid = torch.arange(n, dtype=i32, device=dev).expand(k_cap, n)
+    gid = slot_gaussian_ids(n, k_cap, dev)
 
     if opacity is None or enum_cap <= k_cap:
         count = torch.clamp(raw_count, max=k_cap)
@@ -60,7 +68,7 @@ def emit_pairs(proj: Projected, tile_h: int, tile_w: int, grid_h: int,
         ok = kk < count[None, :]
         tile_key = torch.where(ok, ty * grid_w + tx,
                                torch.full_like(ty, num_tiles)).to(i32)
-        return tile_key.reshape(-1), gid.reshape(-1), n_dropped_rect
+        return tile_key.reshape(-1), gid, n_dropped_rect
 
     # ---- exact cull: test up to enum_cap rect cells per gaussian ----
     cc = torch.arange(enum_cap, dtype=i32, device=dev)[:, None]
@@ -118,7 +126,7 @@ def emit_pairs(proj: Projected, tile_h: int, tile_w: int, grid_h: int,
     beyond = torch.minimum(torch.clamp(raw_count - enum_cap, min=0), passable)
     n_dropped_rect = (torch.sum(torch.clamp(pass_count - k_cap, min=0))
                       + torch.sum(beyond)).to(i32)
-    return tile_key.reshape(-1), gid.reshape(-1), n_dropped_rect
+    return tile_key.reshape(-1), gid, n_dropped_rect
 
 
 def tile_ranges(sorted_tile: torch.Tensor, num_tiles: int):

@@ -4,10 +4,11 @@ Port of `dynamic3dgaussians_tpu/ops/playback.py`. Along a smooth camera path
 or a timeline seen from a fixed camera, the depth order and the tile
 membership of the splats change slowly, so a frame is split into:
 
-  * KEY frames (`build_cache`): projection, emission with the exact cull,
-    and an argsort of the live pairs' float-bits (tile, depth) key, no
-    payload. The cache keeps the order: each sorted pair's gaussian id
-    and each tile's segment.
+  * KEY frames (`build_cache`): projection, emission with the exact cull
+    (on the card the kernel E1, `ops/cuda/emit.py`), and an argsort of
+    the live pairs' float-bits (tile, depth) key, no payload. The cache
+    keeps the order: each sorted pair's gaussian id and each tile's
+    segment.
   * CACHED frames (`render_playback`): project fresh, build the
     per-gaussian record rows from the current geometry, colours and
     opacity, and gather them through the cached ids straight into the
@@ -85,9 +86,9 @@ def build_cache(cam: Camera, means3d: torch.Tensor, opacity: torch.Tensor,
                 config: Optional[RasterConfig] = None,
                 scale_modifier: float = 1.0,
                 device: DeviceLike = None) -> PlaybackCache:
-    """Key-frame pass: emission and a key-only sort on `device` (default
-    `cuda`, where `cam` must already be). opacity (N,) or (N, 1)
-    activated."""
+    """Key-frame pass: emission (the kernel E1 on the card) and a key-only
+    sort on `device` (default `cuda`, where `cam` must already be).
+    opacity (N,) or (N, 1) activated."""
     cfg = config or RasterConfig()
     dev, (means3d, opacity, scales, rotations) = _inputs(
         cam, device, means3d, opacity, scales, rotations)

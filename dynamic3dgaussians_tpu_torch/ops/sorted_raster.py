@@ -66,6 +66,7 @@ from typing import NamedTuple
 import torch
 
 from dynamic3dgaussians_tpu_torch.ops.binning import emit_pairs, tile_ranges
+from dynamic3dgaussians_tpu_torch.ops.cuda.emit import emit_pairs_cuda
 from dynamic3dgaussians_tpu_torch.ops.cuda.raster_bwd import (
     composite_tiles_bwd, composite_tiles_bwd_torch)
 from dynamic3dgaussians_tpu_torch.ops.cuda.raster_fwd import (
@@ -370,13 +371,16 @@ def record_columns(proj: Projected, colors: torch.Tensor,
 
 def emit(h: int, w: int, proj: Projected, opacity: torch.Tensor, *,
          tile_h: int, tile_w: int, max_tiles_per_gaussian: int,
-         exact_cull: bool, enum_cap: int):
-    """(tile_key, gid, n_dropped_rect) of the K-slot pair emission."""
+         exact_cull: bool, enum_cap: int, use_kernel: bool = True):
+    """(tile_key, gid, n_dropped_rect) of the K-slot pair emission: through
+    the kernel E1 (`emit_pairs_cuda`) or, with use_kernel False, the plain
+    `emit_pairs`."""
     grid_h, grid_w = -(-h // tile_h), -(-w // tile_w)
     k_cap = max_tiles_per_gaussian
     cap = (enum_cap or max(16, 2 * k_cap)) if exact_cull else 0
-    return emit_pairs(proj, tile_h, tile_w, grid_h, grid_w, k_cap,
-                      opacity=opacity if exact_cull else None, enum_cap=cap)
+    fn = emit_pairs_cuda if use_kernel else emit_pairs
+    return fn(proj, tile_h, tile_w, grid_h, grid_w, k_cap,
+              opacity=opacity if exact_cull else None, enum_cap=cap)
 
 
 def sorted_records(h: int, w: int, proj: Projected, colors: torch.Tensor,
@@ -385,7 +389,8 @@ def sorted_records(h: int, w: int, proj: Projected, colors: torch.Tensor,
                    max_tiles_per_gaussian: int = 8, fused_key: bool = True,
                    depth_mode: str = "quantized", exact_cull: bool = True,
                    enum_cap: int = 0, variant: Variant = Variant()):
-    """Emission, sort and merged record table: the kernels' inputs.
+    """Emission (through E1 on the card), sort and merged record table:
+    the kernels' inputs.
 
     colors (N, C) linear channels, opacity (N,) activated and zeroed for
     invalid gaussians. Returns (rec_t, starts, counts, n_dropped_rect).
@@ -485,10 +490,11 @@ def render_sorted(h: int, w: int, proj: Projected, colors: torch.Tensor,
 
     colors (N, C) linear channels, opacity (N,) activated and zeroed for
     invalid gaussians, bg (C,) composited as bg * (1 - alpha). use_kernel
-    picks the CUDA kernels (`composite_tiles`, `composite_tiles_bwd`) or
-    their plain versions. Gradients reach proj's x2d, y2d, conic and depth,
-    colors and opacity. pair_cap: the table's fixed pair capacity
-    (`prepare_records_static`, no host read), or None for the eager table.
+    picks the CUDA kernels (`emit_pairs_cuda`, `composite_tiles`,
+    `composite_tiles_bwd`) or their plain versions. Gradients reach proj's
+    x2d, y2d, conic and depth, colors and opacity. pair_cap: the table's
+    fixed pair capacity (`prepare_records_static`, no host read), or None
+    for the eager table.
 
     Returns (channels (H, W, C), depth (H, W), alpha (H, W), n_dropped_rect,
     pair_stats): pair_stats is the static table's int64 [live pairs, live
@@ -504,7 +510,7 @@ def render_sorted(h: int, w: int, proj: Projected, colors: torch.Tensor,
     tile_key, gid, n_dropped_rect = emit(
         h, w, proj, opacity.detach(), tile_h=tile_h, tile_w=tile_w,
         max_tiles_per_gaussian=max_tiles_per_gaussian,
-        exact_cull=exact_cull, enum_cap=enum_cap)
+        exact_cull=exact_cull, enum_cap=enum_cap, use_kernel=use_kernel)
     table = record_columns(proj, colors, opacity)
     bits_z = depth_key_bits(num_tiles) if fused_key else 0
     spec = (n_chan, num_tiles, grid_w, tile_h, tile_w, chunk, bits_z,

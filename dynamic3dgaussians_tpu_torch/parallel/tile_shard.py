@@ -3,7 +3,8 @@ of tiles.
 
 Port of `dynamic3dgaussians_tpu/parallel/tile_shard.py`. Every rank
 projects all gaussians and emits their (gaussian, tile) pairs over the
-whole grid (no exact cull, as in the reference), then keeps the pairs of
+whole grid (no exact cull, as in the reference; on the card through the
+emission kernel E1, `ops/cuda/emit.py`), then keeps the pairs of
 its own stripe of `grid_h / K` tile rows: the tile keys become
 stripe-local ids (pairs off the stripe go to the sentinel, which the sort
 drops) and the y coordinates stripe-local pixels, since the kernels derive
@@ -30,8 +31,8 @@ from typing import Optional
 import torch
 
 from dynamic3dgaussians_tpu_torch.device import DeviceLike, resolve_device
-from dynamic3dgaussians_tpu_torch.ops.binning import emit_pairs
 from dynamic3dgaussians_tpu_torch.ops.camera import Camera
+from dynamic3dgaussians_tpu_torch.ops.cuda.emit import emit_pairs_cuda
 from dynamic3dgaussians_tpu_torch.ops.projection import project
 from dynamic3dgaussians_tpu_torch.ops.rasterize import RasterConfig
 from dynamic3dgaussians_tpu_torch.ops.sorted_raster import (_SortComposite,
@@ -53,8 +54,8 @@ def stripe_table(cam: Camera, cfg: RasterConfig, k: int, d: int,
     tiles_local = rows_local * grid_w
     proj = project(means3d, scales, rotations, cam)
     op = torch.where(proj.valid, opacity, torch.zeros_like(opacity))
-    tile_key, gid, _ = emit_pairs(proj, th, tw, grid_h, grid_w,
-                                  cfg.max_tiles_per_gaussian)
+    tile_key, gid, _ = emit_pairs_cuda(proj, th, tw, grid_h, grid_w,
+                                       cfg.max_tiles_per_gaussian)
     t0 = d * tiles_local
     key_local = torch.where(
         (tile_key >= t0) & (tile_key < t0 + tiles_local),

@@ -11,8 +11,10 @@ the `render_frame` inputs: RGB + 3 seg channels) and prints JSON lines:
   * `stages`: host-clock milliseconds of each stage of `render_frame`,
     each ended by `torch.cuda.synchronize()` (median over --reps): upload
     (numpy params to the card and activation), project, emit (pair
-    emission with the exact cull), records (emission + sort + merged
-    record table), k1 (the forward tile kernel), frame (the whole
+    emission with the exact cull through the kernel E1, as the render
+    runs it), emit_plain (the plain emission on the same inputs), records
+    (emission + sort + merged record table), k1 (the forward tile
+    kernel), frame (the whole
     `render_frame` plus the uint8 copy back to the host, as
     `orbit_render` does it);
   * `profile`: a `torch.profiler` trace of --frames such frames: the
@@ -31,7 +33,9 @@ and the state extrapolated as `train` does it) at K = 64:
     through K2 and the projection), update (dead-row mask, Adam, the
     densification statistics) and step (`make_train_step`'s whole step),
     at t > 0 also physics (`physics_losses` forward and its gradient
-    alone), host clock, synchronised, median over --reps;
+    alone), and the step's emission at its K apart: emit (E1) and
+    emit_plain (the plain emission), host clock, synchronised, median over
+    --reps;
   * `train_profile`: the `torch.profiler` summary of --steps steps.
 
 With --train-witness it runs only `chip_smoke.py`'s `cli train` on the
@@ -62,6 +66,7 @@ from dynamic3dgaussians_tpu_torch.convert import params_from_jax
 from dynamic3dgaussians_tpu_torch.models.gaussians import activated
 from dynamic3dgaussians_tpu_torch.ops.binning import emit_pairs
 from dynamic3dgaussians_tpu_torch.ops.camera import make_camera
+from dynamic3dgaussians_tpu_torch.ops.cuda.emit import emit_pairs_cuda
 from dynamic3dgaussians_tpu_torch.ops.cuda.raster_fwd import composite_tiles
 from dynamic3dgaussians_tpu_torch.ops.projection import project
 from dynamic3dgaussians_tpu_torch.ops.sorted_raster import sorted_records
@@ -100,8 +105,11 @@ def stage_times(params, cam, dev):
                      torch.zeros_like(act["opacity"]))
     chans = torch.cat([act["colors"], p["seg_colors"]], dim=-1)
     grid_h, grid_w = -(-cs.H // cs.TILE), -(-cs.W // cs.TILE)
-    _, times["emit"] = timed(lambda: emit_pairs(
-        proj, cs.TILE, cs.TILE, grid_h, grid_w, 8, opacity=op, enum_cap=16))
+    args = (proj, cs.TILE, cs.TILE, grid_h, grid_w, 8)
+    _, times["emit"] = timed(lambda: emit_pairs_cuda(*args, opacity=op,
+                                                     enum_cap=16))
+    _, times["emit_plain"] = timed(lambda: emit_pairs(*args, opacity=op,
+                                                      enum_cap=16))
     (rec_t, starts, counts, _), times["records"] = timed(
         lambda: sorted_records(cs.H, cs.W, proj, chans, op))
     _, times["k1"] = timed(lambda: composite_tiles(
@@ -158,6 +166,23 @@ def physics_ms(params, variables):
     return timed(run)[1]
 
 
+def emission_ms(params, variables, cam, k_slots):
+    """ms of the step's pair emission at K = `k_slots` (the exact cull,
+    enum_cap max(16, 2 K), as `render` runs it) through E1 and through
+    the plain emission, on the step's own projection."""
+    from dynamic3dgaussians_tpu_torch.models import gaussians as G
+    with torch.no_grad():
+        act = G.activated(params, variables["alive"])
+        proj = project(act["means3d"], act["scales"], act["rotations"], cam)
+        op = torch.where(proj.valid, act["opacity"],
+                         torch.zeros_like(act["opacity"]))
+        args = (proj, cs.TILE, cs.TILE, -(-cam.height // cs.TILE),
+                -(-cam.width // cs.TILE), k_slots)
+        kw = dict(opacity=op, enum_cap=max(16, 2 * k_slots))
+        return dict(emit=timed(lambda: emit_pairs_cuda(*args, **kw))[1],
+                    emit_plain=timed(lambda: emit_pairs(*args, **kw))[1])
+
+
 def train_stage_times(state, batch, k_slots, dev, is_initial=True):
     from dynamic3dgaussians_tpu_torch.models import gaussians as G
     from dynamic3dgaussians_tpu_torch.train import densify, optim
@@ -195,6 +220,7 @@ def train_stage_times(state, batch, k_slots, dev, is_initial=True):
                                           batch, lrs, is_initial))
     if not is_initial:
         times["physics"] = physics_ms(params, variables)
+    times.update(emission_ms(params, variables, batch["camera"], k_slots))
     times["n_dropped_rect"] = int(aux["n_dropped_rect"])
     return times, (lambda: step(params, opt_state, variables, batch, lrs,
                                 is_initial))

@@ -23,15 +23,25 @@ are in the plain version. K2 must give bitwise the same output on a
 second launch. Of the probe kernel K3: 1e-5 relative on each walk's
 scalar for the compute
 variants (the same cell pipeline; the scan and the sums over 256 pixels in
-another order) and 1e-6 for dma_only (sums of 4096 values per block).
+another order) and 1e-6 for dma_only (sums of 4096 values per block). The
+pair emission E1 must equal the plain emission bitwise (keys, gaussian
+ids, n_dropped_rect), and the numpy model of E1 (`torch_emit_model.py`)
+in the card's arithmetic.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
+import torch_emit_model as EM
+from dynamic3dgaussians_tpu_torch.ops import binning as tbin
 from dynamic3dgaussians_tpu_torch.ops import camera as tcam
+from dynamic3dgaussians_tpu_torch.ops import projection as tproj
 from dynamic3dgaussians_tpu_torch.ops import rasterize as trast
+from dynamic3dgaussians_tpu_torch.ops.cuda import emit as E1
+from dynamic3dgaussians_tpu_torch.ops.cuda import launches
 from dynamic3dgaussians_tpu_torch.ops.cuda import raster_bwd as K2
 from dynamic3dgaussians_tpu_torch.ops.cuda import raster_fwd as K1
 from dynamic3dgaussians_tpu_torch.ops.cuda import sol_probe as K3
@@ -415,3 +425,84 @@ def test_cuda_kernels_opaque_stop_chunk128(cuda_device):
         assert float(d_out[:, first_end:s + int(counts[t])].abs().max()) \
             == 0.0
         assert float(d_out[:, s:first_end].abs().max()) > 0
+
+
+# ---------------------------------------------------------------- E1
+
+E1_K_ENUM = [(8, 16), (16, 32), (64, 128), (8, 128), (64, 16)]
+
+
+def _on(proj, dev):
+    return tproj.Projected(**{fl.name: getattr(proj, fl.name).to(dev)
+                              for fl in dataclasses.fields(proj)})
+
+
+@pytest.mark.parametrize("cull", (True, False))
+@pytest.mark.parametrize("k,enum_cap", E1_K_ENUM)
+def test_cuda_emit_matches_plain(cuda_device, k, enum_cap, cull):
+    """E1 against the plain emission on the card, bitwise: keys, gaussian
+    ids and n_dropped_rect; and against the numpy model of E1 in the
+    card's arithmetic (torch's exp, log and sqrt there, division by a
+    Python scalar as a multiplication by its float32 reciprocal). The
+    tables hold bounds within an ulp of the gate."""
+    math = EM.device_math(cuda_device)
+    for seed in range(4):
+        proj, op, _ = EM.emit_table(seed, enum_cap=enum_cap, math=math)
+        op = op if cull else None
+        dproj = _on(proj, cuda_device)
+        dop = None if op is None else op.to(cuda_device)
+        args = (EM.TILE, EM.TILE, EM.GRID_H, EM.GRID_W, k)
+        before = E1.emit_pairs_cuda.launches
+        kk, kg, kd = E1.emit_pairs_cuda(dproj, *args, opacity=dop,
+                                        enum_cap=enum_cap)
+        torch.cuda.synchronize()
+        assert E1.emit_pairs_cuda.launches == before + 1
+        pk, pg, pd = tbin.emit_pairs(dproj, *args, opacity=dop,
+                                     enum_cap=enum_cap)
+        assert torch.equal(kk, pk) and torch.equal(kg, pg), seed
+        assert int(kd) == int(pd), seed
+        mk, md = EM.e1_model(proj, op, *args, enum_cap, math)
+        np.testing.assert_array_equal(kk.cpu().numpy(), mk)
+        assert int(kd) == int(md)
+
+
+def test_cuda_emit_counts_its_runs_in_a_graph(cuda_device):
+    """E1 captured in a CUDA graph: each replay runs it (its device
+    counter), the host count sees the capture once, and the replayed
+    output is the eager one."""
+    proj, op, _ = EM.emit_table(3, enum_cap=128,
+                                math=EM.device_math(cuda_device))
+    dproj, dop = _on(proj, cuda_device), op.to(cuda_device)
+    args = (dproj, EM.TILE, EM.TILE, EM.GRID_H, EM.GRID_W, 64)
+    want = E1.emit_pairs_cuda(*args, opacity=dop, enum_cap=128)
+    launches.zero(E1.emit_pairs_cuda)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        E1.emit_pairs_cuda(*args, opacity=dop, enum_cap=128)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        got = E1.emit_pairs_cuda(*args, opacity=dop, enum_cap=128)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert E1.emit_pairs_cuda.launches == 2
+    assert launches.runs(E1.emit_pairs_cuda) == 4
+
+
+def test_cuda_render_emits_through_e1(cuda_device):
+    """`render` on the card emits through E1 once per render; the plain
+    path ("torch") never launches it."""
+    arrays, seg = _scene(300, seed=5)
+    w2c = np.eye(4)
+    w2c[2, 3] = 4.0
+    cam = tcam.make_camera(128, 96, [[90.0, 0, 64], [0, 90.0, 48],
+                                     [0, 0, 1]], w2c, device=cuda_device)
+    args = [torch.as_tensor(a, device=cuda_device) for a in arrays]
+    before = E1.emit_pairs_cuda.launches
+    trast.render(cam, *args, device=cuda_device)
+    assert E1.emit_pairs_cuda.launches == before + 1
+    trast.render(cam, *args, method="torch", device=cuda_device)
+    assert E1.emit_pairs_cuda.launches == before + 1
