@@ -281,11 +281,13 @@ def stop_scene():
 
 def ptxas_summary(report: str):
     """{"raster_fwd_kernel<8>": "0 bytes spill stores, Used 39 registers",
-    "sol_compute_kernel<1>": ..., "sol_dma_kernel": ...} from nvcc's
+    "sol_compute_kernel<1>": ..., "sol_dma_kernel": ...,
+    "emit_count_kernel<1>": ...} from nvcc's
     -Xptxas -v report."""
     out, name = {}, None
     for ln in report.splitlines():
-        m = re.search(r"((?:raster|sol)_[a-z]+_kernel)(?:IL[ib](\d+)E)?", ln)
+        m = re.search(r"((?:raster|sol|emit)_[a-z]+_kernel)"
+                      r"(?:IL[ib](\d+)E)?", ln)
         if m and "Compiling entry" in ln:
             name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
             out[name] = ""
@@ -702,8 +704,10 @@ def phase_k2(table, extra_key, device, smi):
 
 # ------------------------------------------------------------------ E1
 
-# The emission kernel E1 against the plain emission (`ops/binning.py::
-# emit_pairs`), bitwise: tile keys, gaussian ids and n_dropped_rect equal.
+# The emission kernel E1 against its plain version (`ops/binning.py::
+# emit_live_pairs`: the K-slot `emit_pairs`, then `compact_pairs`),
+# bitwise: the live pairs' tile keys and slots, the live count and
+# n_dropped_rect equal, eagerly and at a capacity below the live count.
 # Tables (`emit_tables`): the bench view (K = 8, enum_cap 16), the stopping
 # table (K = 16, enum_cap 32), the bench training's 800,768-row table at
 # K = 64, enum_cap 128 (its dead capacity rows included) and the tile
@@ -714,9 +718,17 @@ EMIT_TRAIN_K = 64
 EMIT_STRIPES = 4          # the world of the stripe tables checked
 # float32 operations of the cull per tested cell (ddx and ddy 5 each, d2 3,
 # the exponent 1, exp 1, times opacity 1, the gate 1) and per gaussian
-# (lam_min 6, dmax 8, nx and ny 12, the drop terms 4)
+# (the rect 14, lam_min 6, dmax 8, nx and ny 12, the drop terms 4)
 EMIT_CELL_OPS = 17
-EMIT_GAUSS_OPS = 30
+EMIT_GAUSS_OPS = 44
+# bytes E1 must move: per gaussian its inputs once (x2d, y2d, radius,
+# valid; with the cull conic a, b, c and opacity), per live pair its tile
+# key and slot, and the counts and the drops
+EMIT_IN_BYTES = {True: 4 * 7 + 1, False: 4 * 3 + 1}
+EMIT_PAIR_BYTES = 8
+EMIT_OUT_BYTES = 16 + 4
+# the tested cells of a live walk, bucketed (`trip_counts`)
+TRIP_EDGES = (0, 1, 2, 4, 8, 16, 32, 64, 128)
 
 
 def emit_projection(scene, cam):
@@ -820,60 +832,129 @@ def bits_differ(a, b) -> int:
                 & ~both_nan).sum())
 
 
-def emit_against_plain(name, t, smi):
-    """E1 (`emit_pairs_cuda`) against `emit_pairs` on table `t`: equality
-    of keys, gaussian ids and drops; on the cull's tables the kernel's
-    expf, logf and sqrt against torch's on the cull's own inputs; ms of
-    each side (the wrapper, and the kernel alone on its prepared inputs)
-    and the kernel's bound. A mismatch records its first (slot, gaussian)
-    and that gaussian's plain bound nearest the gate."""
+def trip_counts(proj, op, grid_h, grid_w, enum_cap):
+    """The walks E1's cull makes on a table: rows skipped (!(op >= gate),
+    no cell can pass), live walks by their tested cells (min(count,
+    enum_cap)) in TRIP_EDGES buckets, those a lane walks alone (at most
+    SOLO cells) and those its warp walks, with the warp's 32-cell steps."""
     import torch
-    from dynamic3dgaussians_tpu_torch.ops.binning import emit_pairs
+    from dynamic3dgaussians_tpu_torch.ops.cuda.emit import CULL_GATE, SOLO
+    from dynamic3dgaussians_tpu_torch.ops.projection import tile_rect
+    raw = tile_rect(proj, TILE, TILE, grid_h, grid_w)[4]
+    cells = torch.clamp(torch.clamp(raw, max=enum_cap), min=0).long()
+    live = op >= float(CULL_GATE)
+    walk = cells[live & (cells > 0)]
+    buckets = {}
+    for lo, hi in zip(TRIP_EDGES[:-1], TRIP_EDGES[1:]):
+        buckets[f"{lo + 1}-{hi}"] = int(((walk > lo) & (walk <= hi)).sum())
+    big = walk[walk > SOLO]
+    return dict(rows=int(cells.numel()), skipped=int((~live).sum()),
+                skipped_with_cells=int((~live & (cells > 0)).sum()),
+                live_no_cells=int((live & (cells == 0)).sum()),
+                walks=int(walk.numel()), cells=int(walk.sum()),
+                buckets=buckets, lane_walks=int((walk <= SOLO).sum()),
+                warp_walks=int(big.numel()),
+                warp_steps=int(((big + 31) // 32).sum()))
+
+
+def pairs_differ(got, want):
+    """(max |difference| over tile, slot, counts and drops, the first
+    differing pair or None) of two `Pairs`."""
+    import torch
+    err = abs(int(got.n_dropped_rect) - int(want.n_dropped_rect))
+    err = max(err, int((got.counts - want.counts).abs().max()))
+    if got.tile.shape != want.tile.shape:
+        return max(err, abs(got.tile.shape[0] - want.tile.shape[0])), dict(
+            size=got.tile.shape[0], plain_size=want.tile.shape[0])
+    if got.tile.numel() == 0:
+        return err, None
+    d = torch.maximum((got.tile - want.tile).abs(),
+                      (got.slot - want.slot).abs())
+    err = max(err, int(d.max()))
+    if not bool(d.any()):
+        return err, None
+    i = int(torch.nonzero(d)[0])
+    return err, dict(index=i, tile=int(got.tile[i]), slot=int(got.slot[i]),
+                     plain_tile=int(want.tile[i]),
+                     plain_slot=int(want.slot[i]))
+
+
+def graph_ms(fn, reps):
+    """Device ms per call of `fn`, `reps` calls captured in one CUDA graph
+    and replayed (no host issue time between the calls)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    del graph
+    return t0.elapsed_time(t1) / reps
+
+
+def emit_against_plain(name, t, smi):
+    """E1 (`emit_pairs_cuda`) against its plain version (`emit_live_pairs`)
+    on table `t`: equality of the live pairs' tile keys and slots, the live
+    count and the drops, eagerly and at a capacity of half the live
+    count; on the cull's tables the kernel's expf, logf and sqrt against
+    torch's on the cull's own inputs and the walks it makes; ms of E1
+    alone (its three launches at the live count, replayed from a CUDA
+    graph), of the emit + compaction stage (the wrapper as the render
+    calls it: with its one host read of the live count) and of the plain
+    version; the bound of the bytes and operations the function needs, and
+    the bound of the K-slot form's bytes. A mismatch records its first
+    pair."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.ops.binning import emit_live_pairs
     from dynamic3dgaussians_tpu_torch.ops.cuda.emit import (
-        CULL_GATE, emit_math, emit_pairs_cuda, kernel_inputs, launch)
+        BLOCK, CULL_GATE, emit_math, emit_pairs_cuda, kernel_inputs, launch)
     from dynamic3dgaussians_tpu_torch.tools.bench_sol import cuda_ms
     cam, proj, op, k = t["cam"], t["proj"], t["op"], t["k"]
     grid_h, grid_w = -(-cam.height // TILE), -(-cam.width // TILE)
-    enum_cap = max(16, 2 * k) if op is not None else 0
+    cull = op is not None
+    enum_cap = max(16, 2 * k) if cull else 0
     n = proj.depth.shape[0]
     args = (proj, TILE, TILE, grid_h, grid_w, k)
     kw = dict(opacity=op, enum_cap=enum_cap)
     with torch.no_grad():
-        ms, (key, gid, drops) = cuda_ms(
-            lambda: emit_pairs_cuda(*args, **kw), EMIT_REPS, warmup=2)
-        plain_ms, (pkey, pgid, pdrops) = cuda_ms(
-            lambda: emit_pairs(*args, **kw), 3)
-        # the kernel alone, on its prepared inputs (the wrapper also runs
-        # tile_rect and builds the gaussian ids)
+        stage_ms, got = cuda_ms(lambda: emit_pairs_cuda(*args, **kw),
+                                EMIT_REPS, warmup=2)
+        plain_ms, want = cuda_ms(lambda: emit_live_pairs(*args, **kw), 3)
+        n_live = got.tile.shape[0]
+        half = max(n_live // 2, 1)
+        err, first = pairs_differ(got, want)
+        err_cap, first_cap = pairs_differ(
+            emit_pairs_cuda(*args, pair_cap=half, **kw),
+            emit_live_pairs(*args, pair_cap=half, **kw))
         kin = kernel_inputs(*args, op, enum_cap)
-        out = torch.empty_like(key)
-        kernel_ms, _ = cuda_ms(
-            lambda: launch(kin, out, torch.zeros_like(drops)), EMIT_REPS,
-            warmup=2)
-        del kin, out
+        kernel_ms = graph_ms(lambda: launch(kin, n_live), EMIT_REPS)
+        del kin
         rec = dict(phase="emit_vs_plain", table=name, n=n, k_slots=k,
-                   enum_cap=enum_cap, cull=op is not None,
-                   max_abs_err=max(int((key - pkey).abs().max()),
-                                   abs(int(drops) - int(pdrops))),
-                   live_pairs=int((key < grid_h * grid_w).sum()),
-                   n_dropped_rect=int(drops),
-                   plain_n_dropped_rect=int(pdrops),
-                   keys_equal=torch.equal(key, pkey),
-                   gid_equal=torch.equal(gid, pgid),
-                   drops_equal=int(drops) == int(pdrops),
-                   ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms, card=smi,
+                   enum_cap=enum_cap, cull=cull, live_pairs=n_live,
+                   pairs_equal=err == 0 and first is None,
+                   capped=dict(pair_cap=half, equal=err_cap == 0
+                               and first_cap is None, first_mismatch=first_cap,
+                               overflow=n_live - half),
+                   max_abs_err=max(err, err_cap),
+                   n_dropped_rect=int(got.n_dropped_rect),
+                   plain_n_dropped_rect=int(want.n_dropped_rect),
+                   ms=kernel_ms, stage_ms=stage_ms, plain_ms=plain_ms,
+                   first_mismatch=first, card=smi,
                    **{key_: t[key_] for key_ in ("dead_rows",
                                                  "dead_on_screen")
                       if key_ in t})
-        first = None
-        if not rec["keys_equal"]:
-            i = int(torch.nonzero(key != pkey)[0])
-            first = dict(slot=i // n, gaussian=i % n, kernel=int(key[i]),
-                         plain=int(pkey[i]))
         cells = 0
-        if op is not None:
+        if cull:
             terms = cull_terms(proj, op, grid_h, grid_w, enum_cap)
-            cells = terms["cells"]
             rec["math_bits_differ"] = {
                 fn: bits_differ(getattr(torch, fn)(terms[fn]),
                                 emit_math(terms[fn], fn))
@@ -882,30 +963,116 @@ def emit_against_plain(name, t, smi):
                                   for fn in ("exp", "log", "sqrt")}
             rec["div_is_reciprocal"] = terms["div_is_reciprocal"]
             rec["div_true_differs"] = terms["div_true_differs"]
+            rec["all_rect_cells"] = terms["cells"]
             # how close the data comes to the gate
             gap = (terms["bound"] - float(CULL_GATE)).abs()
             gap = torch.where(terms["in_rect"], gap,
                               torch.full_like(gap, float("inf")))
             rec["min_gap_to_gate"] = float(gap.min())
-            if first is not None:
-                first["plain_bound_nearest_gate"] = float(
-                    gap[:, first["gaussian"]].min())
             del terms, gap
-        rec["first_mismatch"] = first
-        rec.update(tested_cells=cells,
-                   **bound(EMIT_CELL_OPS * cells
-                           + (EMIT_GAUSS_OPS * n if op is not None else 0),
-                           n * 4 * (10 if op is not None else 4)
-                           + k * n * 4 + 4))
+            rec["trips"] = trip_counts(proj, op, grid_h, grid_w, enum_cap)
+            cells = rec["trips"]["cells"]
+        rec["tested_cells"] = cells
+        need = (n * EMIT_IN_BYTES[cull] + n_live * EMIT_PAIR_BYTES
+                + EMIT_OUT_BYTES)
+        rec.update(**bound(EMIT_CELL_OPS * cells
+                           + (EMIT_GAUSS_OPS * n if cull else 14 * n),
+                           need))
+        # the counting pass's workspace (n(g) as uint16 written and read;
+        # the (K + 1, blocks) count matrix written, scanned in place and
+        # read) on top
+        nb = -(-n // BLOCK)
+        work = n * 2 * 2 + (k + 1) * nb * 4 * 4 + (k + 1) * 4 * 2
+        rec["bound_with_workspace"] = bound(0, need + work)
+        # the K-slot form's bytes: its inputs, K slots of int32 keys
+        # written
+        rec["kslot_bound"] = bound(0, n * 4 * (10 if cull else 4)
+                                   + k * n * 4 + 4)
     return rec
 
 
-def stripe_keys_equal(t, scene):
-    """`tile_shard.stripe_table`'s stripe-local keys of each of the
-    EMIT_STRIPES stripes (E1 inside) against the plain emission's,
-    localised the same way."""
+def kn_check(t):
+    """What the card path runs between the projection and the sort, on
+    table `t`: the allocator's peak, above what was allocated before, of
+    the emission through E1 eagerly (`emit`) and at a capacity
+    (`emit(pair_cap)`), and through the plain version (the K-slot emission
+    and its compaction), against the bytes of one K*N int32 array; the
+    device kernels of three eager emissions, traced after one warm-up
+    emission (the tracer can miss the first kernels it sees); and the
+    backward's per-slot buffer with its sink column (`slot_sum`) against
+    the K*N-column buffer, bitwise, on the emission's slots."""
     import torch
-    from dynamic3dgaussians_tpu_torch.ops.binning import emit_pairs
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from dynamic3dgaussians_tpu_torch.ops import sorted_raster as SR
+    cam, proj, op, k = t["cam"], t["proj"], t["op"], t["k"]
+    n = proj.depth.shape[0]
+    ekw = dict(tile_h=TILE, tile_w=TILE, max_tiles_per_gaussian=k,
+               exact_cull=True, enum_cap=0)
+
+    def emit_(**kw):
+        return SR.emit(cam.height, cam.width, proj, op, **ekw, **kw)
+
+    out = dict(kn_bytes=k * n * 4)
+    with torch.no_grad():
+        pairs = emit_()
+        cap = pairs.tile.shape[0] + pairs.tile.shape[0] // 4
+        for name, fn in (("eager", emit_),
+                         ("static", lambda: emit_(pair_cap=cap)),
+                         ("plain", lambda: emit_(use_kernel=False))):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            res = fn()
+            torch.cuda.synchronize()
+            out[f"peak_{name}"] = torch.cuda.max_memory_allocated() - base
+            del res
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            emit_()
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(3):
+                emit_()
+            torch.cuda.synchronize()
+            prof.step()
+        kernel_ms, copies = {}, 0
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            if e.name.startswith(("Memcpy", "Memset")):
+                copies += 1
+                continue
+            kernel_ms[e.name] = kernel_ms.get(e.name, 0.0) + (
+                e.time_range.end - e.time_range.start) / 3e3
+        out.update(kernel_ms=kernel_ms, kernels=sorted(kernel_ms),
+                   kernels_per_call=sum(1 for e in prof.events()
+                                        if e.device_type == DeviceType.CUDA
+                                        and e.name in kernel_ms) / 3,
+                   copies_per_call=copies / 3)
+        slot = pairs.slot.long()
+        gen = torch.Generator(device=op.device).manual_seed(0)
+        d = torch.randn((16, slot.numel()), generator=gen, device=op.device)
+        buf = torch.zeros((16, k * n), device=op.device)
+        buf[:, slot] = d
+        kslot_sum = buf.view(16, -1, n).sum(1)
+        del buf
+        sink = torch.full((7,), k * n, dtype=torch.int64, device=op.device)
+        out["sink_sum_bitwise"] = torch.equal(
+            SR.slot_sum(torch.cat([slot, sink]),
+                        torch.cat([d, torch.ones_like(d[:, :7])], 1), k * n,
+                        n), kslot_sum)
+    return out
+
+
+def stripe_pairs_equal(t, scene):
+    """`tile_shard.stripe_table`'s live pairs of each of the EMIT_STRIPES
+    stripes (E1 inside, stripe-local keys) against the plain version's
+    live pairs on the stripe, localised the same way."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.ops.binning import emit_live_pairs
     from dynamic3dgaussians_tpu_torch.ops.rasterize import RasterConfig
     from dynamic3dgaussians_tpu_torch.parallel.tile_shard import stripe_table
     cam, cfg = t["cam"], RasterConfig()
@@ -914,45 +1081,57 @@ def stripe_keys_equal(t, scene):
             for k in ("means", "colors", "opac", "scales", "quats")]
     tiles_local = grid_h // EMIT_STRIPES * grid_w
     with torch.no_grad():
-        plain, _, _ = emit_pairs(t["proj"], TILE, TILE, grid_h, grid_w,
-                                 cfg.max_tiles_per_gaussian)
+        plain = emit_live_pairs(t["proj"], TILE, TILE, grid_h, grid_w,
+                                cfg.max_tiles_per_gaussian)
         ok = []
         for d in range(EMIT_STRIPES):
-            _, key_local, _, _ = stripe_table(cam, cfg, EMIT_STRIPES, d,
-                                              *args)
+            _, pairs, _ = stripe_table(cam, cfg, EMIT_STRIPES, d, *args)
             t0 = d * tiles_local
-            want = torch.where((plain >= t0) & (plain < t0 + tiles_local),
-                               plain - t0,
-                               torch.full_like(plain, tiles_local))
-            ok.append(torch.equal(key_local, want))
+            on = (plain.tile >= t0) & (plain.tile < t0 + tiles_local)
+            ok.append(torch.equal(pairs.tile, plain.tile[on] - t0)
+                      and torch.equal(pairs.slot, plain.slot[on])
+                      and int(pairs.counts[0]) == int(on.sum()))
     return ok
 
 
 def phase_emit(scene, device, smi):
-    """E1 against the plain emission on every table of `emit_tables`."""
+    """E1 against its plain version on every table of `emit_tables`; on
+    the bench training's table the allocator's peak from the emission to
+    the sorted table."""
     import torch
     recs = {}
     for name, t in emit_tables(scene, device).items():
         rec = emit_against_plain(name, t, smi)
         if name == "stripe":
-            rec["stripe_table_keys_equal"] = stripe_keys_equal(t, scene)
+            rec["stripe_table_pairs_equal"] = stripe_pairs_equal(t, scene)
+        if name == "train_k64":
+            rec["kn_check"] = kn_check(t)
         emit(rec)
         recs[name] = rec
         del t
         torch.cuda.empty_cache()
     bad = []
     for name, r in recs.items():
-        if not (r["keys_equal"] and r["gid_equal"] and r["drops_equal"]):
+        if not (r["pairs_equal"] and r["capped"]["equal"]):
             print(f"emit_vs_plain {name}: E1 differs from the plain "
-                  f"emission: first mismatch {r['first_mismatch']}, drops "
+                  f"emission: first mismatch {r['first_mismatch']} / "
+                  f"{r['capped']['first_mismatch']}, drops "
                   f"{r['n_dropped_rect']} / {r['plain_n_dropped_rect']}",
                   flush=True)
             bad.append(name)
         if r["cull"] and (any(r["math_bits_differ"].values())
                           or not r["div_is_reciprocal"]):
             bad.append(f"{name} math")
-        if not all(r.get("stripe_table_keys_equal", [True])):
+        if not all(r.get("stripe_table_pairs_equal", [True])):
             bad.append(f"{name} stripe_table")
+        kn = r.get("kn_check")
+        if kn and not (kn["peak_eager"] < kn["kn_bytes"]
+                       and kn["peak_static"] < kn["kn_bytes"]
+                       and kn["kernels_per_call"] == 3
+                       and all("emit_" in name for name in kn["kernels"])):
+            bad.append(f"{name} more than E1 between projection and sort")
+        if kn and not kn["sink_sum_bitwise"]:
+            bad.append(f"{name} sink column sum")
     if bad:
         raise AssertionError(f"emit_vs_plain failed: {bad}")
     return recs
@@ -2187,15 +2366,15 @@ def phase_playback_main_path(scene, device, smi):
         # the exact render's emission and sort at the key frame's camera
         cfg = RasterConfig()
         num_tiles = cache.starts.shape[0]
-        tile_key, gid, _ = emit_pairs(
+        pairs = emit_pairs(
             H, W, proj, op, tile_h=TILE, tile_w=TILE,
             max_tiles_per_gaussian=cfg.max_tiles_per_gaussian,
             exact_cull=cfg.exact_cull, enum_cap=cfg.emit_enum_cap)
         _, ex_starts, ex_counts, ex_slots = prepare_records(
-            tile_key, gid, table, n_chan=chans.shape[1], num_tiles=num_tiles,
+            pairs, table, n_chan=chans.shape[1], num_tiles=num_tiles,
             chunk=CHUNK, bits_z=depth_key_bits(num_tiles),
             depth_mode=cfg.depth_mode)
-        ex_gidx = gid[ex_slots].long()
+        ex_gidx = ex_slots % proj.depth.shape[0]
         tiles = torch.arange(num_tiles, device=device)
         pair_tile = torch.repeat_interleave(tiles, cache.counts.long())
         pb_key = fuse_tile_depth_key(pair_tile.to(torch.int32),
@@ -3849,7 +4028,7 @@ def par_reference(spec, device):
 def par_tables(spec, device):
     """K1 and K2 against their plain versions on the tables the sharded
     renders give them: each tile stripe's (stripe-local keys and y, the
-    off-stripe pairs at the sentinel, no exact cull) and each depth slab's
+    stripe's live pairs, no exact cull) and each depth slab's
     (its rows, the padding at zero opacity), at every world size of
     PAR_RUNS and both depth modes, built by the renders' own
     `stripe_table` and `slab_inputs`. Returns {kind: {world: [per mode and
@@ -3872,10 +4051,10 @@ def par_tables(spec, device):
                 for d in range(world):
                     with torch.no_grad():
                         if kind == "tile":
-                            table, key, gid, sp = stripe_table(
+                            table, pairs, sp = stripe_table(
                                 cam, cfg, world, d, *args)
                             rec_t, starts, counts, _ = prepare_records(
-                                key, gid, table, n_chan=sp[0],
+                                pairs, table, n_chan=sp[0],
                                 num_tiles=sp[1], chunk=sp[5], bits_z=sp[6],
                                 depth_mode=mode)
                             kw = dict(num_tiles=sp[1], grid_w=sp[2],
@@ -4636,18 +4815,18 @@ def win_tables(params, variables, cam, k, pair_cap):
         op = torch.where(proj.valid, act["opacity"],
                          torch.zeros_like(act["opacity"]))
         chans = torch.cat([act["colors"], params["seg_colors"]], dim=-1)
-        tile_key, gid, _ = SR.emit(cam.height, cam.width, proj, op,
-                                   tile_h=TILE, tile_w=TILE,
-                                   max_tiles_per_gaussian=k, exact_cull=True,
-                                   enum_cap=0)
+        def emit(pair_cap=None):
+            return SR.emit(cam.height, cam.width, proj, op, tile_h=TILE,
+                           tile_w=TILE, max_tiles_per_gaussian=k,
+                           exact_cull=True, enum_cap=0, pair_cap=pair_cap)
         table = SR.record_columns(proj, chans, op)
         grid_w = -(-cam.width // TILE)
         num_tiles = -(-cam.height // TILE) * grid_w
         kw = dict(n_chan=chans.shape[1], num_tiles=num_tiles, chunk=CHUNK,
                   bits_z=SR.depth_key_bits(num_tiles),
                   depth_mode="quantized")
-        eager = SR.prepare_records(tile_key, gid, table, **kw)
-        static = SR.prepare_records_static(tile_key, gid, table,
+        eager = SR.prepare_records(emit(), table, **kw)
+        static = SR.prepare_records_static(emit(pair_cap), table,
                                            pair_cap=pair_cap, **kw)
     return eager, static, chans.shape[1], dict(
         num_tiles=num_tiles, grid_w=grid_w, tile_h=TILE, tile_w=TILE,
@@ -5522,10 +5701,13 @@ def main() -> int:
              bound_ms=wide["bound_ms"], bound_by=wide["bound_by"],
              library_ms=None),
         # E1 at the bench training's K = 64 table (the t > 0 steps and the
-        # end of every t = 0), the kernel alone on its prepared inputs
-        # (wrapper_ms: with tile_rect and the gaussian ids, as the path
-        # calls it), and at the bench view's K = 8; bitwise the plain
-        # emission on every table of `phase_emit`
+        # end of every t = 0): its three launches alone at the live count
+        # (replayed from a CUDA graph), stage_ms the emit + compaction
+        # stage as the path calls it (the wrapper, its host read of the
+        # live count included), the bound of the bytes the function needs
+        # (inputs once, 8 B a live pair), with the count workspace and of
+        # the K-slot form; and at the bench view's K = 8; bitwise the
+        # plain version on every table of `phase_emit`
         dict(name="emit_pairs", route="cuda",
              source="dynamic3dgaussians_tpu_torch/csrc/emit.cu",
              replaces="dynamic3dgaussians_tpu/ops/binning.py:44",
@@ -5533,17 +5715,23 @@ def main() -> int:
              launches_by_path=by_path["emit_pairs"],
              runs_by_path=runs_by_path["emit_pairs"],
              max_abs_err=max(r["max_abs_err"] for r in e1.values()),
-             ms=e1["train_k64"]["kernel_ms"],
-             wrapper_ms=e1["train_k64"]["ms"],
+             ms=e1["train_k64"]["ms"],
+             stage_ms=e1["train_k64"]["stage_ms"],
              plain_ms=e1["train_k64"]["plain_ms"],
              bound_ms=e1["train_k64"]["bound_ms"],
              bound_by=e1["train_k64"]["bound_by"], library_ms=None,
+             bound_bytes=e1["train_k64"]["bytes"],
+             bound_ms_with_workspace=e1["train_k64"][
+                 "bound_with_workspace"]["bound_ms"],
+             kslot_bound_ms=e1["train_k64"]["kslot_bound"]["bound_ms"],
              k_slots=EMIT_TRAIN_K, enum_cap=e1["train_k64"]["enum_cap"],
-             bench_k8=dict(ms=e1["bench"]["kernel_ms"],
-                           wrapper_ms=e1["bench"]["ms"],
+             bench_k8=dict(ms=e1["bench"]["ms"],
+                           stage_ms=e1["bench"]["stage_ms"],
                            plain_ms=e1["bench"]["plain_ms"],
                            bound_ms=e1["bench"]["bound_ms"],
-                           bound_by=e1["bench"]["bound_by"]))]
+                           bound_by=e1["bench"]["bound_by"],
+                           kslot_bound_ms=e1["bench"]["kslot_bound"][
+                               "bound_ms"]))]
         + variant_lines})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -118,9 +118,11 @@ def load_library() -> ctypes.CDLL:
     lib.d3g_raster_bwd.restype = i32
     lib.d3g_sol_probe.argtypes = [vp, i64, i32, i32, vp, vp]
     lib.d3g_sol_probe.restype = i32
-    lib.d3g_emit_pairs.argtypes = ([vp] * 10 + [i32] * 8 + [f32] * 7
-                                   + [vp] * 4)
-    lib.d3g_emit_pairs.restype = i32
+    emit_common = [vp] * 8 + [i32] * 8 + [f32] * 7 + [i32]
+    lib.d3g_emit_count.argtypes = emit_common + [vp] * 4
+    lib.d3g_emit_count.restype = i32
+    lib.d3g_emit_write.argtypes = emit_common + [vp] * 3 + [i32] + [vp] * 6
+    lib.d3g_emit_write.restype = i32
     lib.d3g_emit_math.argtypes = [vp, i64, i32, vp, vp]
     lib.d3g_emit_math.restype = i32
     lib.d3g_error_string.argtypes = [i32]

@@ -5,10 +5,14 @@ Port of `dynamic3dgaussians_tpu/ops/binning.py` (`emit_pairs`,
 `max_tiles_per_gaussian` emission slots, laid out k-major (slot = k * N +
 gaussian), with `num_tiles` as the sentinel of an unused slot. Keeping the
 K slots means `n_dropped_rect` counts the same drops as the reference:
-pairs that a gaussian's K slots could not hold. `emit_pairs` is the plain
-version of the emission kernel E1 (`ops/cuda/emit.py::emit_pairs_cuda`),
-which the kernel paths run on the card. `bin_gaussians` feeds the plain
-"tiled" render path, with the reference's fixed pair capacity.
+pairs that a gaussian's K slots could not hold. `bin_gaussians` feeds the
+plain "tiled" render path, with the reference's fixed pair capacity.
+
+The sorted-pair paths take the live pairs only (`Pairs`): compacted in
+slot order, each with its tile key and its emission slot. The emission
+kernel E1 (`ops/cuda/emit.py::emit_pairs_cuda`) writes that form on the
+card; its plain version is `emit_live_pairs`, the K-slot `emit_pairs`
+followed by `compact_pairs`.
 """
 
 from __future__ import annotations
@@ -19,6 +23,20 @@ import torch
 
 from dynamic3dgaussians_tpu_torch.ops.compositing import ALPHA_EPS
 from dynamic3dgaussians_tpu_torch.ops.projection import Projected, tile_rect
+
+
+class Pairs(NamedTuple):
+    """The live (gaussian, tile) pairs of an emission, compacted in slot
+    order (slot = k * N + gaussian, k-major: the order of `torch.nonzero`
+    over the K-slot keys). With a capacity M the first M live pairs are
+    kept and the columns past the live count hold the sentinel tile and
+    the sink slot `n_slots`; without one M is the live count."""
+
+    tile: torch.Tensor            # (M,) int32 tile key
+    slot: torch.Tensor            # (M,) int32 emission slot
+    counts: torch.Tensor          # (2,) int64 [live pairs, past the capacity]
+    n_dropped_rect: torch.Tensor  # () int32
+    n_slots: int                  # K * N, the sink slot
 
 
 class TileBins(NamedTuple):
@@ -127,6 +145,50 @@ def emit_pairs(proj: Projected, tile_h: int, tile_w: int, grid_h: int,
     n_dropped_rect = (torch.sum(torch.clamp(pass_count - k_cap, min=0))
                       + torch.sum(beyond)).to(i32)
     return tile_key.reshape(-1), gid, n_dropped_rect
+
+
+def compact_pairs(tile_key: torch.Tensor, num_tiles: int,
+                  pair_cap: int = None):
+    """(tile (M,) int32, slot (M,) int32, counts (2,) int64) of the live
+    slots of K-slot keys (`emit_pairs`), in slot order: `nonzero`, or with
+    a `pair_cap` a cumulative sum and a scatter (no host read) into M =
+    pair_cap columns, the sentinel tile and the sink slot K*N past the
+    live count. counts: [live pairs, live pairs past pair_cap]."""
+    n_slots = tile_key.shape[0]
+    dev = tile_key.device
+    live = tile_key < num_tiles
+    if pair_cap is None:
+        idx = torch.nonzero(live).squeeze(1)
+        n_live = torch.full((), idx.numel(), dtype=torch.int64, device=dev)
+        return (tile_key[idx], idx.to(torch.int32),
+                torch.stack([n_live, torch.zeros_like(n_live)]))
+    pos = torch.cumsum(live, 0, dtype=torch.int64) - 1
+    n_live = pos[-1] + 1 if n_slots else torch.zeros(
+        (), dtype=torch.int64, device=dev)
+    # the k-th live slot to column k; the rest to column pair_cap, cut off
+    col = torch.where(live & (pos < pair_cap), pos,
+                      torch.full_like(pos, pair_cap))
+    tile = torch.full((pair_cap + 1,), num_tiles, dtype=torch.int32,
+                      device=dev)
+    slot = torch.full((pair_cap + 1,), n_slots, dtype=torch.int32,
+                      device=dev)
+    tile[col] = tile_key.to(torch.int32)
+    slot[col] = torch.arange(n_slots, dtype=torch.int32, device=dev)
+    return (tile[:pair_cap], slot[:pair_cap],
+            torch.stack([n_live, torch.clamp(n_live - pair_cap, min=0)]))
+
+
+def emit_live_pairs(proj: Projected, tile_h: int, tile_w: int, grid_h: int,
+                    grid_w: int, max_tiles_per_gaussian: int,
+                    opacity: torch.Tensor = None, enum_cap: int = 0,
+                    pair_cap: int = None) -> Pairs:
+    """The plain version of the kernel E1: `emit_pairs`, then
+    `compact_pairs` of its keys."""
+    tile_key, _, n_dropped_rect = emit_pairs(
+        proj, tile_h, tile_w, grid_h, grid_w, max_tiles_per_gaussian,
+        opacity=opacity, enum_cap=enum_cap)
+    tile, slot, counts = compact_pairs(tile_key, grid_h * grid_w, pair_cap)
+    return Pairs(tile, slot, counts, n_dropped_rect, tile_key.shape[0])
 
 
 def tile_ranges(sorted_tile: torch.Tensor, num_tiles: int):

@@ -37,8 +37,9 @@ cached frames read log2 opacity 0: opacity 1 and the clamp at alpha 1, not
 Differences in the mechanics, not in the result: the reference sorts all
 K*N emission slots and keeps a K*N-long gather index whose sentinel slots
 sort past the last segment; the cache here keeps only the live pairs'
-ids (one host read of their count per key frame), so its record table is
-shorter, and the segments are the same. Inference only, as in the
+ids (the emission hands over the live pairs, one host read of their count
+per key frame), so its record table is shorter, and the segments are the
+same. Inference only, as in the
 reference: no autograd through the frozen order.
 """
 
@@ -98,12 +99,11 @@ def build_cache(cam: Camera, means3d: torch.Tensor, opacity: torch.Tensor,
                    scale_modifier=scale_modifier)
     opacity = opacity.reshape(opacity.shape[0], -1)[:, 0]
     op = torch.where(proj.valid, opacity, torch.zeros_like(opacity))
-    tile_key, gid, n_dropped = emit(
-        h, w, proj, op, tile_h=cfg.tile_h, tile_w=cfg.tile_w,
-        max_tiles_per_gaussian=cfg.max_tiles_per_gaussian,
-        exact_cull=cfg.exact_cull, enum_cap=cfg.emit_enum_cap)
-    live = torch.nonzero(tile_key < num_tiles).squeeze(1)
-    lt, lg = tile_key[live], gid[live]
+    pairs = emit(h, w, proj, op, tile_h=cfg.tile_h, tile_w=cfg.tile_w,
+                 max_tiles_per_gaussian=cfg.max_tiles_per_gaussian,
+                 exact_cull=cfg.exact_cull, enum_cap=cfg.emit_enum_cap)
+    lt = pairs.tile
+    lg = pairs.slot % proj.depth.shape[0]
     depth = proj.depth[lg.long()]
     bits_z = depth_key_bits(num_tiles) if cfg.fused_key else 0
     if bits_z > 0:
@@ -113,7 +113,8 @@ def build_cache(cam: Camera, means3d: torch.Tensor, opacity: torch.Tensor,
     starts, counts = tile_ranges(lt[perm].contiguous(), num_tiles)
     return PlaybackCache(gidx=lg[perm].contiguous(),
                          starts=starts.contiguous(),
-                         counts=counts.contiguous(), n_dropped_rect=n_dropped)
+                         counts=counts.contiguous(),
+                         n_dropped_rect=pairs.n_dropped_rect)
 
 
 def playback_records(proj: Projected, colors: torch.Tensor,

@@ -8,29 +8,30 @@ table -> sort -> forward kernel (K1) and, backwards, the backward kernel
 the result:
 
   * The reference sorts every one of the K*N emission slots with its record
-    payload. Here the live pairs are compacted first (one host read of their
-    count per frame, as the CUDA original reads back its pair count), only
-    their keys are sorted, and the table is built by gathering per-gaussian
-    columns through the sorted gaussian ids. Sentinel slots never reach the
-    table; the kernel never reads past a tile's segment, and the table keeps
-    the reference's chunk of zero slack at its end.
+    payload. Here the emission hands over the live pairs only, compacted in
+    slot order (`binning.Pairs`: on the card the kernel E1 writes them, one
+    host read of their count per frame, as the CUDA original reads back its
+    pair count), only their keys are sorted, and the table is built by
+    gathering per-gaussian columns through the sorted gaussian ids (slot %
+    N). Sentinel slots never reach the table; the kernel never reads past a
+    tile's segment, and the table keeps the reference's chunk of zero slack
+    at its end.
   * `prepare_records_static` is the same with no host read, for a step
-    captured in a CUDA graph: the live pairs go into a fixed `pair_cap`
-    columns (a cumulative sum and a scatter in slot order, where the eager
-    form uses `nonzero`), the unused columns sort last under the sentinel
-    tile and stay zero, and the count of live pairs past `pair_cap` comes
-    back on the device. With pair_cap >= the live count its table, ranges
-    and slots are bitwise the eager form's.
+    captured in a CUDA graph: the emission writes the live pairs into a
+    fixed `pair_cap` columns, the unused columns carry the sentinel tile
+    and the sink slot K*N, sort last and stay zero, and the count of live
+    pairs past `pair_cap` comes back on the device. With pair_cap >= the
+    live count its table, ranges and slots are bitwise the eager form's.
   * depth_mode "total" and the two-key fallback (no depth bits left in a
     32-bit key) sort one 64-bit key, (key << 32) | float bits of depth.
     Live pairs have depth > near > 0, where float bits order like floats.
   * The backward reduces the per-pair gradient rows to gaussians the way
     the reference's unsort + K-axis sum does, deterministically: each live
     pair keeps its emission slot (k-major, slot = k * N + gaussian), its
-    rows are stored at that slot of a zeroed (rows, K * N) buffer (a plain
-    indexed store: slots are unique; the static form's unused columns carry
-    distinct unused emission slots, whose rows are zero), and the buffer is
-    summed over K. No index_add_: on CUDA it sums with atomics in an order
+    rows are stored at that slot of a zeroed per-slot buffer (a plain
+    indexed store: live slots are unique; the static form's unused columns
+    all go to the sink column K * N, which is dropped), and the buffer's
+    first K * N columns are summed over K (`slot_sum`). No index_add_: on CUDA it sums with atomics in an order
     that changes from run to run. The depth row's gradient passes to the
     view depth as identity in every depth mode (as the reference does for
     the quantized key depth); the row of ones takes none.
@@ -65,7 +66,8 @@ from typing import NamedTuple
 
 import torch
 
-from dynamic3dgaussians_tpu_torch.ops.binning import emit_pairs, tile_ranges
+from dynamic3dgaussians_tpu_torch.ops.binning import (Pairs, emit_live_pairs,
+                                                      tile_ranges)
 from dynamic3dgaussians_tpu_torch.ops.cuda.emit import emit_pairs_cuda
 from dynamic3dgaussians_tpu_torch.ops.cuda.raster_bwd import (
     composite_tiles_bwd, composite_tiles_bwd_torch)
@@ -242,33 +244,31 @@ def _sort_live(lt: torch.Tensor, ld: torch.Tensor, live: torch.Tensor,
     return perm, ld[perm]
 
 
-def prepare_records(tile_key: torch.Tensor, gid: torch.Tensor,
-                    table: torch.Tensor, *, n_chan: int, num_tiles: int,
-                    chunk: int, bits_z: int, depth_mode: str,
-                    variant: Variant = Variant(), grid_w: int = 0,
-                    tile_h: int = 16, tile_w: int = 16):
+def prepare_records(pairs: Pairs, table: torch.Tensor, *, n_chan: int,
+                    num_tiles: int, chunk: int, bits_z: int,
+                    depth_mode: str, variant: Variant = Variant(),
+                    grid_w: int = 0, tile_h: int = 16, tile_w: int = 16):
     """Sort the live pairs and build the merged record table.
 
+    pairs: the emission's live pairs, as many as there are (no capacity).
     table: (8 + CV, N) per-gaussian record columns, the depth row holding
     the view depth. Returns (rec_t (8 + CV, NE_pad), starts, counts, slot)
-    with NE_pad = (ceil(n_live / chunk) + 1) * chunk and slot (n_live,) the
-    emission slot of each sorted pair. Reads the live-pair count from the
-    device (one host synchronisation). `variant`'s pack (which needs the
-    tile grid: grid_w, tile_h, tile_w) and fused rows apply to the sorted
-    columns.
+    with NE_pad = (ceil(n_live / chunk) + 1) * chunk and slot (n_live,)
+    int64 the emission slot of each sorted pair. `variant`'s pack (which
+    needs the tile grid: grid_w, tile_h, tile_w) and fused rows apply to
+    the sorted columns.
     """
     dev = table.device
     depth_row = GEOM_ROWS + n_chan
-    live_idx = torch.nonzero(tile_key < num_tiles).squeeze(1)
-    n_live = int(live_idx.numel())
+    n_live = pairs.tile.shape[0]
     ne_pad = (-(-n_live // chunk) + 1) * chunk
     rec_t = torch.zeros((table.shape[0], ne_pad), dtype=torch.float32,
                         device=dev)
     if n_live == 0:
         zeros = torch.zeros((num_tiles,), dtype=torch.int32, device=dev)
-        return rec_t, zeros, zeros.clone(), live_idx
-    lt = tile_key[live_idx]
-    lg = gid[live_idx].long()
+        return rec_t, zeros, zeros.clone(), pairs.slot.long()
+    lt = pairs.tile
+    lg = pairs.slot.long() % table.shape[1]
     ld = table[depth_row, lg]
     perm, sd = _sort_live(lt, ld, torch.ones_like(lt, dtype=torch.bool),
                           bits_z, depth_mode)
@@ -278,48 +278,37 @@ def prepare_records(tile_key: torch.Tensor, gid: torch.Tensor,
         table[:, lg[perm]], st, n_chan=n_chan, bits_z=bits_z,
         variant=variant, grid_w=grid_w, tile_h=tile_h, tile_w=tile_w)
     rec_t[depth_row, :n_live] = sd
-    return rec_t, starts.contiguous(), counts.contiguous(), live_idx[perm]
+    return (rec_t, starts.contiguous(), counts.contiguous(),
+            pairs.slot[perm].long())
 
 
-def prepare_records_static(tile_key: torch.Tensor, gid: torch.Tensor,
-                           table: torch.Tensor, *, n_chan: int,
-                           num_tiles: int, chunk: int, bits_z: int,
-                           depth_mode: str, pair_cap: int,
+def prepare_records_static(pairs: Pairs, table: torch.Tensor, *,
+                           n_chan: int, num_tiles: int, chunk: int,
+                           bits_z: int, depth_mode: str, pair_cap: int,
                            variant: Variant = Variant(), grid_w: int = 0,
                            tile_h: int = 16, tile_w: int = 16):
     """`prepare_records` at a fixed pair capacity, with no host read.
 
-    The live slots are compacted in slot order into `pair_cap` columns,
-    and the columns past the live count take the unused emission slots in
-    slot order (there are at least as many: pair_cap <= K * N): they carry
-    the sentinel tile, sort last, stay zero in the table, and give the
-    backward distinct slots whose rows are zero. Returns (rec_t (8 + CV,
-    NE_pad), starts, counts, slot (pair_cap,), stats) with NE_pad =
-    (ceil(pair_cap / chunk) + 1) * chunk
-    and stats int64 [live pairs, live pairs past pair_cap]: when the second
-    is zero, rec_t[:, :n_live], starts, counts and slot[:n_live] are bitwise
-    `prepare_records`'s; when it is not, the pairs past the capacity are
-    missing from the table.
+    pairs: the emission at capacity `pair_cap`: the first pair_cap live
+    pairs in slot order, then columns of the sentinel tile and the sink
+    slot K * N, which sort last, stay zero in the table and take the
+    backward's sink column. Returns (rec_t (8 + CV, NE_pad), starts,
+    counts, slot (pair_cap,) int64, stats) with NE_pad = (ceil(pair_cap /
+    chunk) + 1) * chunk and stats the emission's int64 [live pairs, live
+    pairs past pair_cap]: when the second is zero, rec_t[:, :n_live],
+    starts, counts and slot[:n_live] are bitwise `prepare_records`'s; when
+    it is not, the pairs past the capacity are missing from the table.
     """
+    if pairs.tile.shape[0] != pair_cap:
+        raise ValueError(f"the emission holds {pairs.tile.shape[0]} pairs, "
+                         f"the table's capacity is {pair_cap}")
     dev = table.device
     depth_row = GEOM_ROWS + n_chan
-    n_slots = tile_key.shape[0]
-    i64 = torch.int64
-    live = tile_key < num_tiles
-    pos = torch.cumsum(live, 0, dtype=i64) - 1
-    n_live = pos[-1] + 1
-    # the k-th live slot (in slot order) to column k, the k-th unused one
-    # to column n_live + k; what falls past the capacity to column
-    # pair_cap, which is cut off
-    col = torch.where(live, pos, n_live + torch.arange(
-        n_slots, dtype=i64, device=dev) - pos - 1)
-    col = torch.where(col < pair_cap, col, torch.full_like(col, pair_cap))
-    src = torch.empty((pair_cap + 1,), dtype=i64, device=dev)
-    src[col] = torch.arange(n_slots, dtype=i64, device=dev)
-    src = src[:pair_cap]
-    valid = torch.arange(pair_cap, dtype=i64, device=dev) < n_live
-    lt = tile_key[src]
-    lg = gid[src].long()
+    n_live = pairs.counts[0]
+    valid = torch.arange(pair_cap, dtype=torch.int64, device=dev) < n_live
+    lt = pairs.tile
+    src = pairs.slot.long()
+    lg = src % table.shape[1]
     ld = table[depth_row, lg]
     # an unused column's depth (some gaussian's, maybe culled) must not
     # reach the affine key's range or its rounding
@@ -337,9 +326,28 @@ def prepare_records_static(tile_key: torch.Tensor, gid: torch.Tensor,
                         device=dev)
     rec_t[:, :pair_cap] = torch.where(valid[None], cols,
                                       torch.zeros_like(cols))
-    slot = src[perm]
-    stats = torch.stack([n_live, torch.clamp(n_live - pair_cap, min=0)])
-    return rec_t, starts.contiguous(), counts.contiguous(), slot, stats
+    return (rec_t, starts.contiguous(), counts.contiguous(), src[perm],
+            pairs.counts)
+
+
+# Columns of the per-slot buffer past its K * N slots: the sink, and 3
+# more, so that a row stays a multiple of 4 floats where K * N is one.
+# CUDA's reduction over K vectorizes its outputs by 4 only when every
+# row is, and a reduction vectorized otherwise sums in another order: with
+# SINK_PAD columns the sum is bitwise that of a (rows, K * N) buffer.
+SINK_PAD = 4
+
+
+def slot_sum(slot: torch.Tensor, d_pairs: torch.Tensor, n_slots: int,
+             n_gauss: int) -> torch.Tensor:
+    """(rows, N): the columns of d_pairs (rows, M) stored at their emission
+    slots (M,) of a zeroed per-slot buffer and summed over K (slot = k * N
+    + gaussian; slot n_slots = K * N is the sink, dropped)."""
+    rows = d_pairs.shape[0]
+    per_slot = torch.zeros((rows, n_slots + SINK_PAD), dtype=d_pairs.dtype,
+                           device=d_pairs.device)
+    per_slot[:, slot] = d_pairs
+    return per_slot[:, :n_slots].view(rows, -1, n_gauss).sum(1)
 
 
 def _untile(x, grid_h, grid_w, th, tw, h, w, c):
@@ -371,16 +379,18 @@ def record_columns(proj: Projected, colors: torch.Tensor,
 
 def emit(h: int, w: int, proj: Projected, opacity: torch.Tensor, *,
          tile_h: int, tile_w: int, max_tiles_per_gaussian: int,
-         exact_cull: bool, enum_cap: int, use_kernel: bool = True):
-    """(tile_key, gid, n_dropped_rect) of the K-slot pair emission: through
-    the kernel E1 (`emit_pairs_cuda`) or, with use_kernel False, the plain
-    `emit_pairs`."""
+         exact_cull: bool, enum_cap: int, use_kernel: bool = True,
+         pair_cap: int = None) -> Pairs:
+    """The live pairs of the emission (`binning.Pairs`, at `pair_cap`
+    columns when given): through the kernel E1 (`emit_pairs_cuda`) or,
+    with use_kernel False, its plain version `emit_live_pairs`."""
     grid_h, grid_w = -(-h // tile_h), -(-w // tile_w)
     k_cap = max_tiles_per_gaussian
     cap = (enum_cap or max(16, 2 * k_cap)) if exact_cull else 0
-    fn = emit_pairs_cuda if use_kernel else emit_pairs
+    fn = emit_pairs_cuda if use_kernel else emit_live_pairs
     return fn(proj, tile_h, tile_w, grid_h, grid_w, k_cap,
-              opacity=opacity if exact_cull else None, enum_cap=cap)
+              opacity=opacity if exact_cull else None, enum_cap=cap,
+              pair_cap=pair_cap)
 
 
 def sorted_records(h: int, w: int, proj: Projected, colors: torch.Tensor,
@@ -399,33 +409,31 @@ def sorted_records(h: int, w: int, proj: Projected, colors: torch.Tensor,
         raise ValueError(f"depth_mode must be one of {DEPTH_MODES}, got "
                          f"{depth_mode!r}")
     num_tiles = -(-h // tile_h) * -(-w // tile_w)
-    tile_key, gid, n_dropped_rect = emit(
-        h, w, proj, opacity, tile_h=tile_h, tile_w=tile_w,
-        max_tiles_per_gaussian=max_tiles_per_gaussian,
-        exact_cull=exact_cull, enum_cap=enum_cap)
+    pairs = emit(h, w, proj, opacity, tile_h=tile_h, tile_w=tile_w,
+                 max_tiles_per_gaussian=max_tiles_per_gaussian,
+                 exact_cull=exact_cull, enum_cap=enum_cap)
     table = record_columns(proj, colors, opacity).detach()
     bits_z = depth_key_bits(num_tiles) if fused_key else 0
     rec_t, starts, counts, _ = prepare_records(
-        tile_key, gid, table, n_chan=colors.shape[-1], num_tiles=num_tiles,
+        pairs, table, n_chan=colors.shape[-1], num_tiles=num_tiles,
         chunk=chunk, bits_z=bits_z, depth_mode=depth_mode, variant=variant,
         grid_w=-(-w // tile_w), tile_h=tile_h, tile_w=tile_w)
-    return rec_t, starts, counts, n_dropped_rect
+    return rec_t, starts, counts, pairs.n_dropped_rect
 
 
 class _SortComposite(torch.autograd.Function):
     """table -> sort -> K1 forward; K2 -> pair-to-gaussian sum backward.
 
-    forward(table (8 + CV, N), tile_key (K*N,), gid (K*N,), spec,
-    pair_cap=None, pair_stats=False) returns the raw accumulators (T, P,
-    CV), and with a pair_cap or pair_stats also int64 [live pairs, live
-    pairs past pair_cap] (no gradient): `prepare_records_static`'s, or the
-    eager table's [live pairs, 0]. spec = (n_chan, num_tiles, grid_w,
+    forward(table (8 + CV, N), pairs (`binning.Pairs`, at pair_cap
+    columns when it is given), spec, pair_cap=None, pair_stats=False)
+    returns the raw accumulators (T, P, CV), and with a pair_cap or
+    pair_stats also the emission's int64 [live pairs, live pairs past
+    pair_cap] (no gradient). spec = (n_chan, num_tiles, grid_w,
     tile_h, tile_w, chunk, bits_z, depth_mode, use_kernel, variant).
     """
 
     @staticmethod
-    def forward(ctx, table, tile_key, gid, spec, pair_cap=None,
-                pair_stats=False):
+    def forward(ctx, table, pairs, spec, pair_cap=None, pair_stats=False):
         (n_chan, num_tiles, grid_w, tile_h, tile_w, chunk, bits_z,
          depth_mode, use_kernel, variant) = spec
         kw = dict(n_chan=n_chan, num_tiles=num_tiles, chunk=chunk,
@@ -433,19 +441,18 @@ class _SortComposite(torch.autograd.Function):
                   grid_w=grid_w, tile_h=tile_h, tile_w=tile_w)
         if pair_cap is None:
             rec_t, starts, counts, slot = prepare_records(
-                tile_key, gid, table.detach(), **kw)
-            stats = torch.tensor([slot.shape[0], 0], dtype=torch.int64,
-                                 device=table.device) if pair_stats else None
+                pairs, table.detach(), **kw)
+            stats = pairs.counts if pair_stats else None
         else:
             rec_t, starts, counts, slot, stats = prepare_records_static(
-                tile_key, gid, table.detach(), pair_cap=pair_cap, **kw)
+                pairs, table.detach(), pair_cap=pair_cap, **kw)
         composite = composite_tiles if use_kernel else composite_tiles_torch
         raw, log_t, n_active = composite(
             rec_t, starts, counts, num_tiles=num_tiles, grid_w=grid_w,
             tile_h=tile_h, tile_w=tile_w, chunk=chunk, **variant.kernel_kw())
         ctx.save_for_backward(rec_t, starts, counts, log_t, n_active, slot)
         ctx.spec = spec
-        ctx.n_slots = tile_key.shape[0]
+        ctx.n_slots = pairs.n_slots
         ctx.n_gauss = table.shape[1]
         if stats is None:
             return raw
@@ -462,7 +469,6 @@ class _SortComposite(torch.autograd.Function):
                     d_raw.contiguous(), num_tiles=num_tiles, grid_w=grid_w,
                     tile_h=tile_h, tile_w=tile_w, chunk=chunk,
                     precision=variant.kernel_precision)
-        n_rows = rec_t.shape[0]
         d_pairs = d_out[:, :slot.shape[0]]
         if variant.pack_records and bits_z > 0:
             # the rows the reference's unsort carries: x, y, the conic,
@@ -470,12 +476,9 @@ class _SortComposite(torch.autograd.Function):
             for rows in (slice(0, 6),
                          slice(GEOM_ROWS, GEOM_ROWS + n_chan + 1)):
                 d_pairs[rows] = round_bf16(d_pairs[rows])
-        per_slot = torch.zeros((n_rows, ctx.n_slots), dtype=torch.float32,
-                               device=rec_t.device)
-        per_slot[:, slot] = d_pairs
-        d_table = per_slot.reshape(n_rows, -1, ctx.n_gauss).sum(1)
+        d_table = slot_sum(slot, d_pairs, ctx.n_slots, ctx.n_gauss)
         d_table[GEOM_ROWS + n_chan + 1:] = 0.0     # ones and pad rows
-        return d_table, None, None, None, None, None
+        return d_table, None, None, None, None
 
 
 def render_sorted(h: int, w: int, proj: Projected, colors: torch.Tensor,
@@ -507,19 +510,18 @@ def render_sorted(h: int, w: int, proj: Projected, colors: torch.Tensor,
     grid_h, grid_w = -(-h // tile_h), -(-w // tile_w)
     num_tiles = grid_h * grid_w
     n_chan = colors.shape[-1]
-    tile_key, gid, n_dropped_rect = emit(
-        h, w, proj, opacity.detach(), tile_h=tile_h, tile_w=tile_w,
-        max_tiles_per_gaussian=max_tiles_per_gaussian,
-        exact_cull=exact_cull, enum_cap=enum_cap, use_kernel=use_kernel)
+    pairs = emit(h, w, proj, opacity.detach(), tile_h=tile_h, tile_w=tile_w,
+                 max_tiles_per_gaussian=max_tiles_per_gaussian,
+                 exact_cull=exact_cull, enum_cap=enum_cap,
+                 use_kernel=use_kernel, pair_cap=pair_cap)
     table = record_columns(proj, colors, opacity)
     bits_z = depth_key_bits(num_tiles) if fused_key else 0
     spec = (n_chan, num_tiles, grid_w, tile_h, tile_w, chunk, bits_z,
             depth_mode, use_kernel, variant)
     if pair_cap is None and not pair_stats:
-        raw, stats = _SortComposite.apply(table, tile_key, gid, spec), None
+        raw, stats = _SortComposite.apply(table, pairs, spec), None
     else:
-        raw, stats = _SortComposite.apply(table, tile_key, gid, spec,
-                                          pair_cap, True)
+        raw, stats = _SortComposite.apply(table, pairs, spec, pair_cap, True)
 
     alpha_t = raw[..., n_chan + 1]
     depth_t = raw[..., n_chan]
@@ -529,4 +531,4 @@ def render_sorted(h: int, w: int, proj: Projected, colors: torch.Tensor,
                         h, w, 1)[..., 0]
     alpha_img = _untile(alpha_t[..., None], grid_h, grid_w, tile_h, tile_w,
                         h, w, 1)[..., 0]
-    return channels, depth_img, alpha_img, n_dropped_rect, stats
+    return channels, depth_img, alpha_img, pairs.n_dropped_rect, stats

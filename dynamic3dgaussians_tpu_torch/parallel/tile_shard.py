@@ -5,10 +5,11 @@ Port of `dynamic3dgaussians_tpu/parallel/tile_shard.py`. Every rank
 projects all gaussians and emits their (gaussian, tile) pairs over the
 whole grid (no exact cull, as in the reference; on the card through the
 emission kernel E1, `ops/cuda/emit.py`), then keeps the pairs of
-its own stripe of `grid_h / K` tile rows: the tile keys become
-stripe-local ids (pairs off the stripe go to the sentinel, which the sort
-drops) and the y coordinates stripe-local pixels, since the kernels derive
-a pixel's position from its local tile index. The stripe is composited
+its own stripe of `grid_h / K` tile rows: of the live pairs, those on the
+stripe are kept (in slot order, as the reference's sort drops the others
+under the sentinel), their tile keys become stripe-local ids and the y
+coordinates stripe-local pixels, since the kernels derive a pixel's
+position from its local tile index. The stripe is composited
 through `ops/sorted_raster.py::_SortComposite` (the forward kernel K1, and
 K2 in the backward) and the stripes are all-gathered along the image's Y
 axis. Each rank sorts and composites about 1/K of the pairs.
@@ -46,20 +47,23 @@ from dynamic3dgaussians_tpu_torch.parallel import collectives as C
 def stripe_table(cam: Camera, cfg: RasterConfig, k: int, d: int,
                  means3d, colors, opacity, scales, rotations):
     """What stripe d of k composites: (table (8 + CV, N) of record columns
-    with stripe-local y, stripe-local tile keys (off-stripe pairs at the
-    sentinel `tiles_local`), gaussian ids, `_SortComposite`'s spec)."""
+    with stripe-local y, the stripe's live pairs (`binning.Pairs`, tile
+    keys stripe-local), `_SortComposite`'s spec)."""
     th, tw = cfg.tile_h, cfg.tile_w
     grid_h, grid_w = -(-cam.height // th), -(-cam.width // tw)
     rows_local = grid_h // k
     tiles_local = rows_local * grid_w
     proj = project(means3d, scales, rotations, cam)
     op = torch.where(proj.valid, opacity, torch.zeros_like(opacity))
-    tile_key, gid, _ = emit_pairs_cuda(proj, th, tw, grid_h, grid_w,
-                                       cfg.max_tiles_per_gaussian)
+    pairs = emit_pairs_cuda(proj, th, tw, grid_h, grid_w,
+                            cfg.max_tiles_per_gaussian)
     t0 = d * tiles_local
-    key_local = torch.where(
-        (tile_key >= t0) & (tile_key < t0 + tiles_local),
-        tile_key - t0, torch.full_like(tile_key, tiles_local))
+    on = (pairs.tile >= t0) & (pairs.tile < t0 + tiles_local)
+    keep = torch.nonzero(on).squeeze(1)
+    n_on = on.sum()
+    pairs = pairs._replace(
+        tile=pairs.tile[keep] - t0, slot=pairs.slot[keep],
+        counts=torch.stack([n_on, torch.zeros_like(n_on)]))
     proj = dataclasses.replace(
         proj, y2d=proj.y2d - float(d * rows_local * th))
     table = record_columns(proj, colors, op)
@@ -67,7 +71,7 @@ def stripe_table(cam: Camera, cfg: RasterConfig, k: int, d: int,
     spec = (colors.shape[-1], tiles_local, grid_w, th, tw, cfg.chunk, bits_z,
             cfg.depth_mode, means3d.device.type == "cuda",
             Variant(kernel_precision=cfg.kernel_precision))
-    return table, key_local, gid, spec
+    return table, pairs, spec
 
 
 def make_tile_sharded_render(cam: Camera, group=None,
@@ -103,10 +107,10 @@ def make_tile_sharded_render(cam: Camera, group=None,
             C.enter_replicated(torch.as_tensor(x, dtype=torch.float32)
                                .to(dev), group)
             for x in (means3d, colors, opacity, scales, rotations, bg))
-        table, key_local, gid, spec = stripe_table(
+        table, pairs, spec = stripe_table(
             cam, cfg, k, d, means3d, colors, opacity.reshape(-1), scales,
             rotations)
-        raw = _SortComposite.apply(table, key_local, gid, spec)
+        raw = _SortComposite.apply(table, pairs, spec)
 
         alpha_t = raw[..., n_chan + 1]
         chan_t = raw[..., :n_chan] + (1.0 - alpha_t[..., None]) * bg

@@ -8,8 +8,10 @@ GPU the counterpart is a CUDA graph of the step. `StepWindow` keeps static
 buffers -- the parameters, Adam state and variables, the learning rates, the
 timestep's stacked camera data, the window's camera indices and a device
 step counter -- and captures one step on them: the step's batch gathered by
-the counter, `make_train_step`'s step with the record table at a fixed pair
-capacity (`sorted_raster.prepare_records_static`, no host read), the new
+the counter, `make_train_step`'s step with the emission and the record
+table at a fixed pair capacity (E1 writes at most that many live pairs and
+counts the rest on the device; `sorted_raster.prepare_records_static`; no
+host read), the new
 state copied back into the static buffers, the step's metrics into a row of
 a history table, the counter advanced. A window of W steps is then:
 
@@ -64,8 +66,10 @@ CAMERA_STATIC = ("height", "width", "near", "far")
 def pair_capacity(n_live: int, n_slots: int) -> int:
     """n_live * HEADROOM rounded up to a multiple of 1/16 of its next power
     of two (less than an eighth more) and of 1,024, at most the n_slots =
-    K * N emission slots. The coarse steps keep a drifting live count from
-    changing the capacity, and with it the captured graph, every window."""
+    K * N emission slots (no more pairs can be live). The coarse steps keep
+    a drifting live count from changing the capacity, and with it the
+    captured graph, every window. A K escalation keeps it: a step whose
+    live pairs then outgrow it is redone at a larger one."""
     want = max(1, int(n_live * HEADROOM + 0.999))
     grain = max(1024, 1 << max(want.bit_length() - 4, 0))
     return max(1, min(n_slots, -(-want // grain) * grain))

@@ -10,11 +10,11 @@ the `render_frame` inputs: RGB + 3 seg channels) and prints JSON lines:
 
   * `stages`: host-clock milliseconds of each stage of `render_frame`,
     each ended by `torch.cuda.synchronize()` (median over --reps): upload
-    (numpy params to the card and activation), project, emit (pair
-    emission with the exact cull through the kernel E1, as the render
-    runs it), emit_plain (the plain emission on the same inputs), records
-    (emission + sort + merged record table), k1 (the forward tile
-    kernel), frame (the whole
+    (numpy params to the card and activation), project, the pair emission
+    with the exact cull and its compaction (`emission_stages`: emit,
+    compact, emit_compact, emit_static, emit_plain), records (emission +
+    sort + merged record table), sort_and_table (records less
+    emit_compact), k1 (the forward tile kernel), frame (the whole
     `render_frame` plus the uint8 copy back to the host, as
     `orbit_render` does it);
   * `profile`: a `torch.profiler` trace of --frames such frames: the
@@ -33,10 +33,14 @@ and the state extrapolated as `train` does it) at K = 64:
     through K2 and the projection), update (dead-row mask, Adam, the
     densification statistics) and step (`make_train_step`'s whole step),
     at t > 0 also physics (`physics_losses` forward and its gradient
-    alone), and the step's emission at its K apart: emit (E1) and
-    emit_plain (the plain emission), host clock, synchronised, median over
-    --reps;
+    alone), and the step's emission at its K apart (`emission_stages`),
+    host clock, synchronised, median over --reps;
   * `train_profile`: the `torch.profiler` summary of --steps steps.
+
+The emission stages keep the compaction of the pairs apart from the
+emission (`compact`), so that `compare_turns.py` can time an earlier
+commit's K-slot emission, whose compaction ran after it, under the same
+names.
 
 With --train-witness it runs only `chip_smoke.py`'s `cli train` on the
 bench layout, at orbit radius 4 (the synthetic layout's default) and 6
@@ -64,13 +68,14 @@ import torch
 import chip_smoke as cs
 from dynamic3dgaussians_tpu_torch.convert import params_from_jax
 from dynamic3dgaussians_tpu_torch.models.gaussians import activated
-from dynamic3dgaussians_tpu_torch.ops.binning import emit_pairs
+from dynamic3dgaussians_tpu_torch.ops import binning
 from dynamic3dgaussians_tpu_torch.ops.camera import make_camera
 from dynamic3dgaussians_tpu_torch.ops.cuda.emit import emit_pairs_cuda
 from dynamic3dgaussians_tpu_torch.ops.cuda.raster_fwd import composite_tiles
 from dynamic3dgaussians_tpu_torch.ops.projection import project
 from dynamic3dgaussians_tpu_torch.ops.sorted_raster import sorted_records
 from dynamic3dgaussians_tpu_torch.tools.bench_sol import smi_line
+from dynamic3dgaussians_tpu_torch.train.step_graph import pair_capacity
 from dynamic3dgaussians_tpu_torch.viz.render import render_frame, to_uint8
 
 def frame_params(scene):
@@ -91,6 +96,29 @@ def timed(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+def emission_stages(proj, op, h, w, k_slots, enum_cap):
+    """ms of the card path's pair emission at K = `k_slots`, which returns
+    the live pairs compacted (compact 0: E1 compacts them itself), eagerly
+    (emit, with its host read of the live count) and at the window's pair
+    capacity (emit_static), and of the plain version (emit_plain);
+    live_pairs their count."""
+    args = (proj, cs.TILE, cs.TILE, -(-h // cs.TILE), -(-w // cs.TILE),
+            k_slots)
+    kw = dict(opacity=op, enum_cap=enum_cap)
+    n_slots = k_slots * proj.depth.shape[0]
+    out = {}
+    pairs, out["emit"] = timed(lambda: emit_pairs_cuda(*args, **kw))
+    n_live = pairs.tile.shape[0]
+    cap = pair_capacity(n_live, n_slots)
+    out["compact"] = 0.0
+    _, out["emit_static"] = timed(
+        lambda: emit_pairs_cuda(*args, pair_cap=cap, **kw))
+    _, out["emit_plain"] = timed(lambda: binning.emit_live_pairs(*args, **kw))
+    out["emit_compact"] = out["emit"] + out["compact"]
+    out["live_pairs"] = n_live
+    return out
+
+
 def upload(params, dev):
     p = params_from_jax(params, dev)
     return p, activated(p)
@@ -105,11 +133,7 @@ def stage_times(params, cam, dev):
                      torch.zeros_like(act["opacity"]))
     chans = torch.cat([act["colors"], p["seg_colors"]], dim=-1)
     grid_h, grid_w = -(-cs.H // cs.TILE), -(-cs.W // cs.TILE)
-    args = (proj, cs.TILE, cs.TILE, grid_h, grid_w, 8)
-    _, times["emit"] = timed(lambda: emit_pairs_cuda(*args, opacity=op,
-                                                     enum_cap=16))
-    _, times["emit_plain"] = timed(lambda: emit_pairs(*args, opacity=op,
-                                                      enum_cap=16))
+    times.update(emission_stages(proj, op, cs.H, cs.W, 8, 16))
     (rec_t, starts, counts, _), times["records"] = timed(
         lambda: sorted_records(cs.H, cs.W, proj, chans, op))
     _, times["k1"] = timed(lambda: composite_tiles(
@@ -167,20 +191,17 @@ def physics_ms(params, variables):
 
 
 def emission_ms(params, variables, cam, k_slots):
-    """ms of the step's pair emission at K = `k_slots` (the exact cull,
-    enum_cap max(16, 2 K), as `render` runs it) through E1 and through
-    the plain emission, on the step's own projection."""
+    """`emission_stages` of the step's pair emission at K = `k_slots` (the
+    exact cull, enum_cap max(16, 2 K), as `render` runs it), on the
+    step's own projection."""
     from dynamic3dgaussians_tpu_torch.models import gaussians as G
     with torch.no_grad():
         act = G.activated(params, variables["alive"])
         proj = project(act["means3d"], act["scales"], act["rotations"], cam)
         op = torch.where(proj.valid, act["opacity"],
                          torch.zeros_like(act["opacity"]))
-        args = (proj, cs.TILE, cs.TILE, -(-cam.height // cs.TILE),
-                -(-cam.width // cs.TILE), k_slots)
-        kw = dict(opacity=op, enum_cap=max(16, 2 * k_slots))
-        return dict(emit=timed(lambda: emit_pairs_cuda(*args, **kw))[1],
-                    emit_plain=timed(lambda: emit_pairs(*args, **kw))[1])
+        return emission_stages(proj, op, cam.height, cam.width, k_slots,
+                               max(16, 2 * k_slots))
 
 
 def train_stage_times(state, batch, k_slots, dev, is_initial=True):
@@ -256,7 +277,7 @@ def main(argv=None) -> int:
     stage_times(params, cam, dev)               # warm: build, allocator
     runs = [stage_times(params, cam, dev) for _ in range(args.reps)]
     stages = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
-    stages["sort_and_table"] = stages["records"] - stages["emit"]
+    stages["sort_and_table"] = stages["records"] - stages["emit_compact"]
     print(json.dumps(dict(phase="stages", ms=stages, reps=args.reps,
                           card=smi)), flush=True)
     print(json.dumps(dict(phase="profile", card=smi, **cs.profile_calls(

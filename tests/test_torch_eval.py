@@ -294,10 +294,10 @@ def test_evaluation_depth_rows_reach_the_tile_composite(monkeypatch,
     seen = {}
     prepare, composite = SR.prepare_records, SR.composite_tiles_torch
 
-    def spy_prepare(tile_key, gid, table, **kw):
+    def spy_prepare(pairs, table, **kw):
         seen["table"] = table
         seen["n_chan"] = kw["n_chan"]
-        return prepare(tile_key, gid, table, **kw)
+        return prepare(pairs, table, **kw)
 
     def spy_composite(rec_t, starts, counts, **kw):
         seen["rec_t"], seen["n_live"] = rec_t, int(counts.sum())

@@ -440,54 +440,68 @@ def _on(proj, dev):
 @pytest.mark.parametrize("cull", (True, False))
 @pytest.mark.parametrize("k,enum_cap", E1_K_ENUM)
 def test_cuda_emit_matches_plain(cuda_device, k, enum_cap, cull):
-    """E1 against the plain emission on the card, bitwise: keys, gaussian
-    ids and n_dropped_rect; and against the numpy model of E1 in the
-    card's arithmetic (torch's exp, log and sqrt there, division by a
-    Python scalar as a multiplication by its float32 reciprocal). The
-    tables hold bounds within an ulp of the gate."""
+    """E1 against its plain version (`emit_pairs` + `compact_pairs`) on the
+    card, bitwise: the live pairs' tile keys and slots, the live count and
+    n_dropped_rect, eagerly and at capacities below and above the live
+    count; and against the numpy model of E1's passes in the card's
+    arithmetic (torch's exp, log and sqrt there, division by a Python
+    scalar as a multiplication by its float32 reciprocal). The tables hold
+    bounds within an ulp of the gate and 300 rows (two blocks, the last
+    ragged)."""
     math = EM.device_math(cuda_device)
     for seed in range(4):
-        proj, op, _ = EM.emit_table(seed, enum_cap=enum_cap, math=math)
+        proj, op, _ = EM.emit_table(seed, n=300, enum_cap=enum_cap,
+                                    math=math)
         op = op if cull else None
         dproj = _on(proj, cuda_device)
         dop = None if op is None else op.to(cuda_device)
         args = (EM.TILE, EM.TILE, EM.GRID_H, EM.GRID_W, k)
         before = E1.emit_pairs_cuda.launches
-        kk, kg, kd = E1.emit_pairs_cuda(dproj, *args, opacity=dop,
-                                        enum_cap=enum_cap)
+        got = E1.emit_pairs_cuda(dproj, *args, opacity=dop,
+                                 enum_cap=enum_cap)
         torch.cuda.synchronize()
         assert E1.emit_pairs_cuda.launches == before + 1
-        pk, pg, pd = tbin.emit_pairs(dproj, *args, opacity=dop,
-                                     enum_cap=enum_cap)
-        assert torch.equal(kk, pk) and torch.equal(kg, pg), seed
-        assert int(kd) == int(pd), seed
-        mk, md = EM.e1_model(proj, op, *args, enum_cap, math)
-        np.testing.assert_array_equal(kk.cpu().numpy(), mk)
-        assert int(kd) == int(md)
+        n_live = got.tile.shape[0]
+        for cap in (None, n_live // 2, n_live + 9):
+            got = E1.emit_pairs_cuda(dproj, *args, opacity=dop,
+                                     enum_cap=enum_cap, pair_cap=cap)
+            want = tbin.emit_live_pairs(dproj, *args, opacity=dop,
+                                        enum_cap=enum_cap, pair_cap=cap)
+            for a, b in zip(got[:4], want[:4]):
+                assert torch.equal(a, b), (seed, cap)
+            mt, ms, mc, md = EM.e1_compact_model(proj, op, *args, enum_cap,
+                                                 math, pair_cap=cap,
+                                                 block=E1.BLOCK)
+            np.testing.assert_array_equal(got.tile.cpu().numpy(), mt)
+            np.testing.assert_array_equal(got.slot.cpu().numpy(), ms)
+            assert got.counts.tolist() == mc.tolist()
+            assert int(got.n_dropped_rect) == int(md)
 
 
 def test_cuda_emit_counts_its_runs_in_a_graph(cuda_device):
-    """E1 captured in a CUDA graph: each replay runs it (its device
-    counter), the host count sees the capture once, and the replayed
-    output is the eager one."""
+    """E1 at a pair capacity captured in a CUDA graph: each replay runs
+    it (its device counter), the host count sees the capture once, and the
+    replayed output is the eager one."""
     proj, op, _ = EM.emit_table(3, enum_cap=128,
                                 math=EM.device_math(cuda_device))
     dproj, dop = _on(proj, cuda_device), op.to(cuda_device)
     args = (dproj, EM.TILE, EM.TILE, EM.GRID_H, EM.GRID_W, 64)
-    want = E1.emit_pairs_cuda(*args, opacity=dop, enum_cap=128)
+    kw = dict(opacity=dop, enum_cap=128)
+    cap = E1.emit_pairs_cuda(*args, **kw).tile.shape[0] + 5
+    want = E1.emit_pairs_cuda(*args, pair_cap=cap, **kw)
     launches.zero(E1.emit_pairs_cuda)
     graph = torch.cuda.CUDAGraph()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        E1.emit_pairs_cuda(*args, opacity=dop, enum_cap=128)
+        E1.emit_pairs_cuda(*args, pair_cap=cap, **kw)
     torch.cuda.current_stream().wait_stream(side)
     with torch.cuda.graph(graph):
-        got = E1.emit_pairs_cuda(*args, opacity=dop, enum_cap=128)
+        got = E1.emit_pairs_cuda(*args, pair_cap=cap, **kw)
     for _ in range(3):
         graph.replay()
     torch.cuda.synchronize()
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(torch.equal(a, b) for a, b in zip(got[:4], want[:4]))
     assert E1.emit_pairs_cuda.launches == 2
     assert launches.runs(E1.emit_pairs_cuda) == 4
 

@@ -232,28 +232,30 @@ def test_pack_records_static_table_matches_eager(scene):
     proj = project(m, s, q, tc)
     op = torch.where(proj.valid, o, torch.zeros_like(o))
     chans = torch.cat([c, e], -1)
-    tile_key, gid, _ = tsr.emit(48, 64, proj, op, tile_h=16, tile_w=16,
-                                max_tiles_per_gaussian=16, exact_cull=True,
-                                enum_cap=0)
+    def emit(pair_cap=None):
+        return tsr.emit(48, 64, proj, op, tile_h=16, tile_w=16,
+                        max_tiles_per_gaussian=16, exact_cull=True,
+                        enum_cap=0, use_kernel=False, pair_cap=pair_cap)
+    pairs = emit()
     table = tsr.record_columns(proj, chans, op)
     kw = dict(n_chan=6, num_tiles=12, chunk=64, bits_z=tsr.depth_key_bits(12),
               depth_mode="quantized", grid_w=4, tile_h=16, tile_w=16)
     pack = tsr.Variant(pack_records=True, power_impl="mxu_fused")
     rec_e, st_e, cn_e, slot_e = tsr.prepare_records(
-        tile_key, gid, table, variant=pack, **kw)
+        pairs, table, variant=pack, **kw)
     n = slot_e.shape[0]
     rec_s, st_s, cn_s, slot_s, stats = tsr.prepare_records_static(
-        tile_key, gid, table, variant=pack, pair_cap=n + 100, **kw)
+        emit(n + 100), table, variant=pack, pair_cap=n + 100, **kw)
     assert stats.tolist() == [n, 0]
     assert torch.equal(rec_s[:, :n], rec_e[:, :n])
     assert not bool(rec_s[:, n:].any())
     assert torch.equal(st_s, st_e) and torch.equal(cn_s, cn_e)
     assert torch.equal(slot_s[:n], slot_e)
-    rec_0 = tsr.prepare_records(tile_key, gid, table, **kw)[0]
+    rec_0 = tsr.prepare_records(pairs, table, **kw)[0]
     assert float((rec_e[:6] - rec_0[:6]).abs().max()) > 1e-4
     # x and y rounded relative to the origin of each pair's own tile
     tile = torch.repeat_interleave(torch.arange(12), cn_e.long())
-    g = gid[slot_e].long()
+    g = slot_e % proj.depth.shape[0]
     for row, src, origin in ((0, proj.x2d, (tile % 4) * 16),
                              (1, proj.y2d, (tile // 4) * 16)):
         o = origin.float()

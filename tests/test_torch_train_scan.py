@@ -297,6 +297,7 @@ def test_run_counters(monkeypatch):
 # ------------------------------------------------ the static record table
 
 def _emission(world, k=64):
+    """(emit(pair_cap) -> the step's live pairs, the record table, CV)."""
     _, tds, pt, w2c = world
     params, variables = TG.init_params(pt, w2c, capacity=512, device="cpu")
     act = TG.activated(params, variables["alive"])
@@ -305,11 +306,13 @@ def _emission(world, k=64):
     op = torch.where(proj.valid, act["opacity"],
                      torch.zeros_like(act["opacity"]))
     chans = torch.cat([act["colors"], params["seg_colors"]], dim=-1)
-    tile_key, gid, _ = SR.emit(H, W, proj, op, tile_h=16, tile_w=16,
-                               max_tiles_per_gaussian=k, exact_cull=True,
-                               enum_cap=0)
+
+    def emit(pair_cap=None):
+        return SR.emit(H, W, proj, op, tile_h=16, tile_w=16,
+                       max_tiles_per_gaussian=k, exact_cull=True, enum_cap=0,
+                       use_kernel=False, pair_cap=pair_cap)
     table = SR.record_columns(proj, chans, op).detach()
-    return tile_key, gid, table, chans.shape[1]
+    return emit, table, chans.shape[1]
 
 
 @pytest.mark.parametrize("depth_mode", ["quantized", "exact", "total"])
@@ -318,41 +321,42 @@ def _emission(world, k=64):
 def test_static_records_match_eager(world, depth_mode, fused, room):
     """With pair_cap >= the live count (exactly it, or more) the static
     table, tile ranges and slots are bitwise the eager ones on the live
-    pairs, the columns past them zero with distinct unused slots, the
+    pairs, the columns past them zero with the sink slot K * N, the
     stats [live, 0]."""
-    tile_key, gid, table, n_chan = _emission(world)
+    emit, table, n_chan = _emission(world)
     num_tiles = 12
     kw = dict(n_chan=n_chan, num_tiles=num_tiles, chunk=64,
               bits_z=SR.depth_key_bits(num_tiles) if fused else 0,
               depth_mode=depth_mode)
-    rec_e, st_e, cn_e, slot_e = SR.prepare_records(tile_key, gid, table,
-                                                   **kw)
+    rec_e, st_e, cn_e, slot_e = SR.prepare_records(emit(), table, **kw)
     n_live = slot_e.shape[0]
     assert n_live > 0
+    pairs = emit(n_live + room)
     rec_s, st_s, cn_s, slot_s, stats = SR.prepare_records_static(
-        tile_key, gid, table, pair_cap=n_live + room, **kw)
+        pairs, table, pair_cap=n_live + room, **kw)
     assert stats.tolist() == [n_live, 0]
     assert rec_s.shape[1] == (-(-(n_live + room) // 64) + 1) * 64
     assert torch.equal(rec_s[:, :n_live], rec_e[:, :n_live])
     assert not bool(rec_s[:, n_live:].any())
     assert torch.equal(st_s, st_e) and torch.equal(cn_s, cn_e)
     assert torch.equal(slot_s[:n_live], slot_e)
-    # the unused columns: distinct unused emission slots
-    assert bool((tile_key[slot_s[n_live:]] == num_tiles).all())
-    assert torch.unique(slot_s).numel() == slot_s.numel()
+    # the unused columns: the sink slot, past the K * N emission slots
+    assert bool((slot_s[n_live:] == pairs.n_slots).all())
+    assert torch.unique(slot_s[:n_live]).numel() == n_live
 
 
 def test_static_records_count_overflow(world):
     """A pair_cap below the live count: the overflow is counted on the
     device and the table holds pair_cap pairs."""
-    tile_key, gid, table, n_chan = _emission(world)
-    n_live = int((tile_key < 12).sum())
+    emit, table, n_chan = _emission(world)
+    n_live = emit().tile.shape[0]
     cap = n_live // 2
+    pairs = emit(cap)
     rec_s, st_s, cn_s, slot_s, stats = SR.prepare_records_static(
-        tile_key, gid, table, n_chan=n_chan, num_tiles=12, chunk=64,
+        pairs, table, n_chan=n_chan, num_tiles=12, chunk=64,
         bits_z=SR.depth_key_bits(12), depth_mode="quantized", pair_cap=cap)
     assert stats.tolist() == [n_live, n_live - cap]
-    assert int(cn_s.sum()) == cap and bool((slot_s < tile_key.shape[0]).all())
+    assert int(cn_s.sum()) == cap and bool((slot_s < pairs.n_slots).all())
 
 
 def test_static_render_gradients_bitwise(world):
