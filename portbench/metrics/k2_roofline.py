@@ -1,0 +1,12 @@
+"""k2_roofline: the backward tile kernel K2 (`csrc/raster_bwd.cu`: its tile
+order pass and the kernel)."""
+
+from portbench import counts, readers
+
+PARTS = ("raster_bwd_kernel", "tile_order_kernel")
+MAIN = "raster_bwd_kernel"
+
+
+def read(run):
+    return readers.roofline(run, PARTS, MAIN, lambda w, cfg: counts.k2(
+        w["read_pairs"], w["tiles"], 6 + cfg["semantic_dim"]))
