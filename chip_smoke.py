@@ -3394,18 +3394,15 @@ TRACK_OCC_MARGIN = 1.02
 
 
 @contextlib.contextmanager
-def recording_motion_steps(log, n_pixels):
+def recording_motion_steps(log):
     """`motion_trainer.make_motion_step` for the length of the block, its
     step appending, after a synchronize, the time, frame, loss and PSNR of
-    every step to `log`; yields (a `Throughput` counting the steps' rays
-    and gaussians from the start of the first step, the motion bases the
-    first step was given)."""
+    every step to `log`; yields ({"t0": the host clock at the start of the
+    first step}, the motion bases the first step was given)."""
     import torch
     from dynamic3dgaussians_tpu_torch.train import motion_trainer as TM
-    from dynamic3dgaussians_tpu_torch.utils.logging import Throughput
     make = TM.make_motion_step
-    tput = Throughput()
-    start = {}
+    clock, start = {}, {}
 
     def wrapped(*a, **k):
         step = make(*a, **k)
@@ -3414,18 +3411,17 @@ def recording_motion_steps(log, n_pixels):
             if not log:
                 start.update(rots=params["motion_rots"].clone(),
                              transls=params["motion_transls"].clone())
-                tput.reset()
+                clock["t0"] = time.perf_counter()
             out = step(params, opt_state, variables, batch, t, lrs)
             torch.cuda.synchronize()
             log.append(dict(it=len(log) + 1, time=time.perf_counter(),
                             t=int(t), loss=float(out[2]["loss"]),
                             psnr=float(out[2]["psnr"])))
-            tput.update(n_pixels, int(variables["alive"].sum()))
             return out
         return rec
     TM.make_motion_step = wrapped
     try:
-        yield tput, start
+        yield clock, start
     finally:
         TM.make_motion_step = make
 
@@ -3740,7 +3736,7 @@ def phase_motion_main_path(scene, device, smi, tmp):
             ("windowed", TM.train_motion_windowed, MOTION_WINDOW)):
         log, reports = [], []
         zero_launches()
-        with recording_motion_steps(log, W * H) as (tput, start):
+        with recording_motion_steps(log) as (clock, start):
             ts = time.perf_counter()
             params, variables = fn(
                 dataset, cfg, pt, w2c, num_bases=MOTION_BASES,
@@ -3748,6 +3744,7 @@ def phase_motion_main_path(scene, device, smi, tmp):
                                           reports.append(i)}, **kw)
             torch.cuda.synchronize()
             run_s = time.perf_counter() - ts
+            iters_per_s = len(log) / (time.perf_counter() - clock["t0"])
         launches = read_launches()
         starts[name] = start
         ms = [x for _, x in step_times(log)]
@@ -3759,7 +3756,7 @@ def phase_motion_main_path(scene, device, smi, tmp):
                          frames=[r["t"] for r in log],
                          loss_first=log[0]["loss"], loss_last=log[-1]["loss"],
                          psnr_first=log[0]["psnr"], psnr_last=log[-1]["psnr"],
-                         **{k: v for k, v in tput.rates().items()}))
+                         iters_per_s=iters_per_s))
         if name == "kmeans":
             trained, trained_vars = params, variables
     psnr_after = motion_views_psnr(trained, trained_vars, dataset, device)

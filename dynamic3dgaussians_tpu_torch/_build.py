@@ -125,6 +125,8 @@ def load_library() -> ctypes.CDLL:
     lib.d3g_emit_write.restype = i32
     lib.d3g_emit_math.argtypes = [vp, i64, i32, vp, vp]
     lib.d3g_emit_math.restype = i32
+    lib.d3g_mark_launch.argtypes = [i32, vp]
+    lib.d3g_mark_launch.restype = i32
     lib.d3g_error_string.argtypes = [i32]
     lib.d3g_error_string.restype = ctypes.c_char_p
     return lib

@@ -25,6 +25,7 @@ from dynamic3dgaussians_tpu_torch.ops.binning import Pairs, emit_live_pairs
 from dynamic3dgaussians_tpu_torch.ops.compositing import ALPHA_EPS
 from dynamic3dgaussians_tpu_torch.ops.cuda import launches
 from dynamic3dgaussians_tpu_torch.ops.projection import Projected
+from dynamic3dgaussians_tpu_torch.utils.logging import span
 
 F32 = np.float32
 CULL_GATE = F32(ALPHA_EPS * 0.999)       # bound >= ALPHA_EPS * 0.999
@@ -70,7 +71,8 @@ def emit_pairs_cuda(proj: Projected, tile_h: int, tile_w: int, grid_h: int,
     (a CUDA graph can capture it). Each emission adds one to
     `emit_pairs_cuda.launches`; each run, eager or replayed from a CUDA
     graph, adds one to its device counter (`launches.py`). Launches on the
-    current stream.
+    current stream. With tracing on, the host read is the span
+    `emit.count_read`.
     """
     dev = proj.depth.device
     if dev.type == "cpu":
@@ -153,7 +155,8 @@ def launch(args: dict, pair_cap: int = None) -> Pairs:
         _build.check(lib, err, "emit_pairs count launch")
         cap = pair_cap
         if cap is None:
-            cap = sum(totals[:k_cap].tolist())
+            with span("emit.count_read"):
+                cap = sum(totals[:k_cap].tolist())
         tile = torch.empty((cap,), dtype=i32, device=dev)
         slot = torch.empty((cap,), dtype=i32, device=dev)
         counts = torch.empty((2,), dtype=torch.int64, device=dev)

@@ -42,6 +42,14 @@ K1's and K2's wrappers count a captured launch once on the host; the
 kernels' device counters count every run, replays included
 (`ops/cuda/launches.py`). A failed capture, or a host read inside it,
 raises; nothing falls back to eager steps.
+
+With tracing on (`utils/logging.py::set_tracing`) the host's work is in
+spans: `window.load` (the copy-in), `window.eager` (the warm-up and eager
+steps), `window.capture`, `window.replay` (one per graph launch),
+`window.read` (the one host read) and `window.result` (the clones); the
+captured step holds the train step's phase marks, which replay with it.
+The setting is part of the graph's key, so turning it on or off captures
+the step again at the next window.
 """
 
 from __future__ import annotations
@@ -54,6 +62,7 @@ import torch
 
 from dynamic3dgaussians_tpu_torch.ops.camera import Camera, select_camera
 from dynamic3dgaussians_tpu_torch.train import optim
+from dynamic3dgaussians_tpu_torch.utils.logging import span, tracing
 
 HEADROOM = 1.25     # capacity over the largest live count seen
 SHRINK = 2.0        # shrink once the capacity is this many times the need
@@ -258,25 +267,27 @@ class StepWindow:
 
     def _eager(self, st: _Static, cap: Optional[int],
                is_initial: bool) -> None:
-        dev = st.i.device
-        if dev.type != "cuda":
-            self._step(st, cap, is_initial)
-        else:
-            # warm-up on a side stream, as CUDA graph capture wants it
-            if self._side is None:
-                self._side = torch.cuda.Stream(dev)
-            cur = torch.cuda.current_stream(dev)
-            self._side.wait_stream(cur)
-            with torch.cuda.stream(self._side):
+        with span("window.eager"):
+            dev = st.i.device
+            if dev.type != "cuda":
                 self._step(st, cap, is_initial)
-            cur.wait_stream(self._side)
+            else:
+                # warm-up on a side stream, as CUDA graph capture wants it
+                if self._side is None:
+                    self._side = torch.cuda.Stream(dev)
+                cur = torch.cuda.current_stream(dev)
+                self._side.wait_stream(cur)
+                with torch.cuda.stream(self._side):
+                    self._step(st, cap, is_initial)
+                cur.wait_stream(self._side)
         self.stats["eager_steps"] += 1
 
     def _capture(self, st: _Static, cap: int, is_initial: bool) -> None:
         self._graph = None
         graph = self.graph_factory()
         t0 = time.perf_counter()
-        graph.capture(lambda: self._step(st, cap, is_initial))
+        with span("window.capture"):
+            graph.capture(lambda: self._step(st, cap, is_initial))
         self._graph = graph
         self.stats["captures"] += 1
         self.stats["capture_ms"] = (time.perf_counter() - t0) * 1e3
@@ -286,11 +297,12 @@ class StepWindow:
                 n_slots: int):
         n = sel.shape[0]
         sig = (_signature(tree), tuple(sel.shape))
-        if self._st is None or self._sig != sig:
-            self._st, self._sig = _Static(tree, sel, sel.device), sig
-            self._graph = None
-        else:
-            self._st.load(tree, sel)
+        with span("window.load"):
+            if self._st is None or self._sig != sig:
+                self._st, self._sig = _Static(tree, sel, sel.device), sig
+                self._graph = None
+            else:
+                self._st.load(tree, sel)
         st = self._st
         done = 0
         if self.pair_cap is None:
@@ -302,18 +314,19 @@ class StepWindow:
             if "n_live_pairs" in st.i_keys:
                 n_live = int(st.hist_i[0, st.i_keys.index("n_live_pairs")])
             self.pair_cap = pair_capacity(n_live, n_slots)
-        key = (self.pair_cap, is_initial, self.k_slots)
+        key = (self.pair_cap, is_initial, self.k_slots, tracing())
         if done < n and (self._graph is None or self._graph_key != key):
             self._eager(st, self.pair_cap, is_initial)
             done += 1
             self._capture(st, self.pair_cap, is_initial)
             self._graph_key = key
         for _ in range(n - done):
-            self._graph.replay()
+            with span("window.replay"):
+                self._graph.replay()
         self.stats["replays"] += n - done
 
-        # the window's one host read
-        hist_i = st.hist_i[:n].cpu()
+        with span("window.read"):       # the window's one host read
+            hist_i = st.hist_i[:n].cpu()
         if "n_live_pairs" in st.i_keys:
             ki = st.i_keys
             max_live = int(hist_i[:, ki.index("n_live_pairs")].max())
@@ -328,7 +341,8 @@ class StepWindow:
             if self.pair_cap > SHRINK * need:
                 self.pair_cap = need
         self.stats["pair_cap"] = self.pair_cap
-        return self._result(st, tree, n)
+        with span("window.result"):
+            return self._result(st, tree, n)
 
     def _result(self, st: _Static, tree, n: int):
         out = st.tree

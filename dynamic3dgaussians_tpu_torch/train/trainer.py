@@ -79,6 +79,7 @@ from dynamic3dgaussians_tpu_torch.train.config import TrainConfig
 from dynamic3dgaussians_tpu_torch.train.step_graph import (StepWindow,
                                                            batch_at,
                                                            window_metrics)
+from dynamic3dgaussians_tpu_torch.utils import logging as LG
 
 MAX_TILES_PER_GAUSSIAN = 64    # K escalation stops here
 
@@ -109,7 +110,7 @@ def resize_feature_map(feat: torch.Tensor, hw) -> torch.Tensor:
 def compute_loss(params: Dict, probe: torch.Tensor, batch: Dict,
                  variables: Dict, *, is_initial: bool, cfg: TrainConfig,
                  rcfg: RasterConfig, pair_cap: Optional[int] = None,
-                 pair_stats: bool = False):
+                 pair_stats: bool = False, phases=LG.NO_PHASES):
     """Loss over one camera datapoint.
 
     batch: {camera, im (H, W, 3), seg (H, W, 3), cam_id (an int, or a 0-d
@@ -118,8 +119,16 @@ def compute_loss(params: Dict, probe: torch.Tensor, batch: Dict,
     F)}. Returns (loss, aux) with the radii for the densification
     statistics, and with a pair_cap or pair_stats (`render`'s) the record
     table's live pairs and overflow.
+
+    `phases` (`utils/logging.py::Phases`, with tracing on) marks the
+    forward's phases -- render, image_loss, physics (the physics losses, at
+    t = 0 none, and the weighted sum) -- and, from autograd hooks, where the
+    backward reaches the image losses (image_loss_bwd) and the render's
+    outputs (render_bwd): autograd runs nodes in reverse order of creation,
+    so the physics nodes' backward comes first.
     """
     alive = variables["alive"]
+    phases.enter("render")
     act = G.activated(params, alive)
     extra = params["seg_colors"]
     has_feat = "gt_feature" in batch and "semantic_feature" in params
@@ -132,6 +141,7 @@ def compute_loss(params: Dict, probe: torch.Tensor, batch: Dict,
                  method=cfg.raster.render_method(), device=cam.device,
                  pair_cap=pair_cap, pair_stats=pair_stats)
 
+    phases.enter("image_loss")
     cam_id = batch["cam_id"]
     if isinstance(cam_id, torch.Tensor) and \
             cam_id.device == params["cam_m"].device:
@@ -150,6 +160,8 @@ def compute_loss(params: Dict, probe: torch.Tensor, batch: Dict,
         gt_feat = batch["gt_feature"]
         feat = resize_feature_map(out.extra[..., 3:], gt_feat.shape[:2])
         losses["feature"] = L.image_loss(feat, gt_feat)
+    phases.enter("physics")
+    image_losses = list(losses.values())
     if not is_initial:
         is_fg = params["seg_colors"][:, 0] > 0.5
         losses.update(L.physics_losses(
@@ -158,6 +170,8 @@ def compute_loss(params: Dict, probe: torch.Tensor, batch: Dict,
 
     w = cfg.loss_weights
     total = sum(float(w.get(k, 0.0)) * v for k, v in losses.items())
+    phases.enter_on(image_losses, "image_loss_bwd")
+    phases.enter_on((out.rgb, out.extra, out.depth), "render_bwd")
     aux = {"losses": losses, "radii": out.radii,
            "psnr": L.psnr(torch.clamp(im, 0, 1), batch["im"]),
            "n_dropped": (out.n_dropped_capacity + out.n_dropped_rect
@@ -171,19 +185,22 @@ def compute_loss(params: Dict, probe: torch.Tensor, batch: Dict,
 
 def loss_and_grads(params: Dict, variables: Dict, batch, *,
                    is_initial: bool, cfg: TrainConfig, rcfg: RasterConfig,
-                   pair_cap: Optional[int] = None, pair_stats: bool = False):
+                   pair_cap: Optional[int] = None, pair_stats: bool = False,
+                   phases=LG.NO_PHASES):
     """`compute_loss` over one datapoint, or over a list of them (the mean
     loss, the largest radii, the mean PSNR and the summed drop counts),
     and its gradients w.r.t. the parameters and the mean2d probe. Returns
     (loss, aux, grads by key, probe gradient), a group that the loss does
-    not reach getting zeros."""
+    not reach getting zeros. `phases`: `compute_loss`'s, and physics_bwd
+    where the backward starts; with several datapoints each one's forward
+    phases are marked in turn."""
     keys = list(params)
     leaves = {k: params[k].detach().requires_grad_(True) for k in keys}
     alive = variables["alive"]
     probe = torch.zeros((alive.shape[0], 2), dtype=torch.float32,
                         device=alive.device, requires_grad=True)
     kw = dict(is_initial=is_initial, cfg=cfg, rcfg=rcfg, pair_cap=pair_cap,
-              pair_stats=pair_stats)
+              pair_stats=pair_stats, phases=phases)
     if isinstance(batch, dict):
         loss, aux = compute_loss(leaves, probe, batch, variables, **kw)
     else:
@@ -201,6 +218,7 @@ def loss_and_grads(params: Dict, variables: Dict, batch, *,
                 [a["n_live_pairs"] for a in auxs]).amax()
             aux["n_pair_overflow"] = sum(a["n_pair_overflow"] for a in auxs)
         loss = torch.stack([p for p, _ in parts]).mean()
+    phases.enter("physics_bwd")
     grads = torch.autograd.grad(loss, [leaves[k] for k in keys] + [probe],
                                 allow_unused=True)
     gp = {k: torch.zeros_like(params[k]) if g is None else g
@@ -236,13 +254,19 @@ def make_train_step(cfg: TrainConfig, rcfg: RasterConfig):
     (`n_live_pairs`, `n_pair_overflow`: a step with overflow is not the
     eager step). pair_stats adds them to an eager step's metrics too (the
     live count, and 0).
+
+    With tracing on (`utils/logging.py::set_tracing`) the step marks its
+    seven phases (`LG.PHASES`), the last, update, from the dead-row mask on.
     """
 
     def train_step(params, opt_state, variables, batch, lrs, is_initial,
                    pair_cap=None, pair_stats=False):
+        phases = LG.phases(variables["alive"].device)
         loss, aux, gp, gprobe = loss_and_grads(
             params, variables, batch, is_initial=is_initial, cfg=cfg,
-            rcfg=rcfg, pair_cap=pair_cap, pair_stats=pair_stats)
+            rcfg=rcfg, pair_cap=pair_cap, pair_stats=pair_stats,
+            phases=phases)
+        phases.enter("update")
         with torch.no_grad():
             gp = mask_dead_rows(gp, variables["alive"])
             new_params, new_opt = optim.step(
@@ -258,6 +282,7 @@ def make_train_step(cfg: TrainConfig, rcfg: RasterConfig):
             if "n_live_pairs" in aux:
                 metrics["n_live_pairs"] = aux["n_live_pairs"]
                 metrics["n_pair_overflow"] = aux["n_pair_overflow"]
+        phases.close()
         return new_params, new_opt, new_vars, metrics
 
     return train_step

@@ -3,18 +3,27 @@
 Port of `dynamic3dgaussians_tpu/utils/logging.py`. Scalars go to
 `<out_dir>/metrics.jsonl` (one JSON object per call), images to PNGs; a
 wandb run is attached only when asked for and the package is importable.
-`Throughput` counts rays/s and gaussians/s, `phase_timer` times a block
-(waiting for the device of a tensor when given one), and
-`start_profiler_trace` / `stop_profiler_trace` wrap `torch.profiler`.
+`phase_timer` times a block (waiting for the device of a tensor when given
+one).
+
+Tracing, off by default and switched process-wide by `set_tracing`: `span`
+opens a host span (a `torch.profiler.record_function` range, on the
+profiler's clock), `mark` marks where a phase of the train step begins on
+the device's timeline (a marker kernel, `csrc/mark.cu`, that a CUDA graph
+captures and replays), and `phases` strings a step's phases together, span
+and mark each. With tracing off each is a flag test and nothing more.
+`start_profiler_trace` / `stop_profiler_trace` wrap `torch.profiler` and
+write what it saw, spans and marks included, as a Chrome trace.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import random
 import time
-from typing import Dict, Optional, Union
+from typing import Dict, Iterable, Optional, Union
 
 import numpy as np
 import torch
@@ -71,30 +80,6 @@ class RunLogger:
             self._wandb.finish()
 
 
-class Throughput:
-    """Rays/s and gaussians/s counters over the time since `reset`."""
-
-    def __init__(self):
-        self.reset()
-
-    def reset(self):
-        self._t0 = time.perf_counter()
-        self._iters = 0
-        self._rays = 0
-        self._gaussians = 0
-
-    def update(self, n_pixels: int, n_gaussians: int, iters: int = 1):
-        self._iters += iters
-        self._rays += n_pixels * iters
-        self._gaussians += n_gaussians * iters
-
-    def rates(self) -> Dict[str, float]:
-        dt = max(time.perf_counter() - self._t0, 1e-9)
-        return {"iters_per_s": self._iters / dt,
-                "rays_per_s": self._rays / dt,
-                "gaussians_per_s": self._gaussians / dt}
-
-
 def _sync(tree) -> None:
     """Wait for the devices of every CUDA tensor in `tree` (a tensor, or a
     dict, list or tuple of them)."""
@@ -149,3 +134,115 @@ def start_profiler_trace(log_dir: Union[str, os.PathLike]):
 
 def stop_profiler_trace(prof) -> None:
     prof.stop()
+
+
+# ------------------------------------------------------------------ tracing
+
+# The phases of a train step, in the order a step marks them (`csrc/mark.cu`
+# instantiates its kernel in this order): the render forward, the image
+# losses, the physics losses and the weighted sum, their backwards in
+# reverse, then the update.
+PHASES = ("render", "image_loss", "physics", "physics_bwd", "image_loss_bwd",
+          "render_bwd", "update")
+
+_tracing = False
+_NO_SPAN = contextlib.nullcontext()
+
+
+def set_tracing(on: bool) -> None:
+    """Turn the spans and marks on or off for the whole process (off by
+    default). A `StepWindow` keeps the setting in its graph key, so its
+    next window captures the step again."""
+    global _tracing
+    _tracing = bool(on)
+
+
+def tracing() -> bool:
+    return _tracing
+
+
+def span(name: str):
+    """A host span: with tracing on, a `torch.profiler.record_function`
+    range named `name`; off, a shared no-op context."""
+    return torch.profiler.record_function(name) if _tracing else _NO_SPAN
+
+
+def mark(phase: str, device) -> None:
+    """With tracing on, where `phase` (one of PHASES) begins on `device`'s
+    timeline: on a CUDA device the phase's marker kernel, on the current
+    stream (a CUDA graph that captures it replays it); elsewhere a
+    zero-length `record_function("mark.<phase>")` on the host."""
+    if not _tracing:
+        return
+    index = PHASES.index(phase)
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        with torch.profiler.record_function(f"mark.{phase}"):
+            pass
+        return
+    from dynamic3dgaussians_tpu_torch import _build
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _build.check(lib, lib.d3g_mark_launch(index, stream),
+                     f"mark {phase}")
+
+
+class Phases:
+    """A step's phases in order, each a host span and a device mark.
+    `enter(name)` ends the open phase's span, marks `name` (`mark`) and
+    opens its span. `enter_on(tensors, name)` enters `name` from autograd
+    hooks on `tensors`, when the backward reaches the first of their nodes;
+    the hooks return None, so no gradient changes. `close()` ends the last
+    span. A span entered from a hook opens on the autograd thread and may
+    end on another, which `record_function` allows."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self._span = None
+
+    def enter(self, name: str) -> None:
+        self.close()
+        mark(name, self.device)
+        self._span = torch.profiler.record_function(name)
+        self._span.__enter__()
+
+    def enter_on(self, tensors: Iterable[Optional[torch.Tensor]],
+                 name: str) -> None:
+        fired = []
+
+        def hook(_grad):
+            if not fired:
+                fired.append(True)
+                self.enter(name)
+
+        for t in tensors:
+            if t is not None and t.requires_grad:
+                t.register_hook(hook)
+
+    def close(self) -> None:
+        if self._span is not None:
+            self._span.__exit__(None, None, None)
+            self._span = None
+
+
+class _NoPhases:
+    """`Phases` with tracing off: registers no hook, launches nothing."""
+
+    def enter(self, name: str) -> None:
+        pass
+
+    def enter_on(self, tensors, name: str) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+NO_PHASES = _NoPhases()
+
+
+def phases(device):
+    """A step's `Phases` on `device`; with tracing off the shared no-op
+    `NO_PHASES`."""
+    return Phases(device) if _tracing else NO_PHASES

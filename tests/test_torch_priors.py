@@ -1,8 +1,8 @@
 """Port parity: the Shape-of-Motion data tools and the logging extras --
 `data/tracks.py`, `data/init_clouds.py`, `data/tools.py`,
-`models/gaussians.py::compose_scenes`, `utils/logging.py`'s `Throughput`,
-`phase_timer` and profiler trace, and `utils/clip_utils.py` -- against the
-JAX package on the CPU.
+`models/gaussians.py::compose_scenes`, `utils/logging.py`'s `phase_timer`
+and profiler trace, and `utils/clip_utils.py` -- against the JAX package on
+the CPU.
 
 The data tools are numpy (and PIL) in both packages, so their outputs
 and the files they write must be bitwise equal, on the inputs of
@@ -289,20 +289,6 @@ def test_compose_scenes_matches(capacity):
 
 
 # ---------------------------------------------------------------- logging
-
-def test_throughput_counts_rays_and_gaussians():
-    tp = TLG.Throughput()
-    tp.update(n_pixels=100, n_gaussians=10)
-    tp.update(n_pixels=100, n_gaussians=10, iters=3)
-    time.sleep(0.01)
-    r = tp.rates()
-    assert set(r) == {"iters_per_s", "rays_per_s", "gaussians_per_s"}
-    assert r["rays_per_s"] == pytest.approx(100 * r["iters_per_s"])
-    assert r["gaussians_per_s"] == pytest.approx(10 * r["iters_per_s"])
-    assert 4 / 10.0 < r["iters_per_s"] < 4 / 0.01
-    tp.reset()
-    assert tp.rates()["iters_per_s"] == 0.0
-
 
 def test_phase_timer_logs_and_syncs(monkeypatch):
     synced = []
