@@ -12,7 +12,9 @@ bench shape, one walk and card-wide, and on a table whose alphas span
 [1/255, 0.99]; the pair emission E1 bitwise -- keys, gaussian ids and
 n_dropped_rect -- on the bench view, the stopping table, the bench
 training's 800,768-row table at K = 64 and the tile stripes, its expf,
-logf and sqrt against torch's on the exact cull's own inputs), counts the
+logf and sqrt against torch's on the exact cull's own inputs; the physics
+losses' edge terms P1 against the plain terms on the bench training's
+t = 1 state, forward and backward), counts the
 cells and (warp, record)
 pairs the tile kernels walk, find live and keep after their footprint
 cull, holds the kernel path's render gradients against the frozen golden
@@ -67,10 +69,10 @@ and the reference's numerics-changing raster settings
 `render`, K1's FUSED and BF16 and K2's BF16 variants against their plain
 versions, the bench training under the reference trainer's shipped
 settings) -- and checks that each went through its kernels: K1,
-K2 and E1 count their runs on the device too, so that the runs replayed
-from a CUDA graph, which the host does not launch, are counted; E1 runs
-once per render, and `cli train` and the window call the plain emission
-never. Prints one
+K2, E1 and P1 count their runs on the device too, so that the runs
+replayed from a CUDA graph, which the host does not launch, are counted;
+E1 runs once per render, and `cli train` and the window call the plain
+emission never; P1's launches and runs are reported per path. Prints one
 JSON object per phase; the last line is `{"ok": true, "device": {...}}`.
 Any failure propagates and exits non-zero, as does a machine without
 CUDA. Imports nothing of JAX.
@@ -225,6 +227,24 @@ def read_runs():
     return {"raster_fwd": launches.runs(fwd),
             "raster_bwd": launches.runs(bwd),
             "emit_pairs": launches.runs(emit_kernel())}
+
+
+def physics_kernel():
+    """P1's wrappers, forward and backward: each counts its launches and,
+    on the device, its runs, as K1, K2 and E1 do."""
+    from dynamic3dgaussians_tpu_torch.ops.cuda import physics as P1
+    return P1.edge_losses_cuda, P1.edge_grads_cuda
+
+
+def take_physics():
+    """P1's host launches and device runs (forward, backward) since the
+    last call, then set to 0 (a device sync)."""
+    from dynamic3dgaussians_tpu_torch.ops.cuda import launches
+    got = {}
+    for name, fn in zip(("fwd", "bwd"), physics_kernel()):
+        got[name] = dict(launches=fn.launches, runs=launches.runs(fn))
+        launches.zero(fn)
+    return got
 
 
 def read_variants():
@@ -1135,6 +1155,128 @@ def phase_emit(scene, device, smi):
     if bad:
         raise AssertionError(f"emit_vs_plain failed: {bad}")
     return recs
+
+
+# ------------------------------------------------------------------ P1
+
+P1_REPS = 20
+P1_UPSTREAM = (4.0, 4.0, 2.0)     # the default loss weights of the terms
+P1_TERMS = ("rigid", "rot", "iso")
+P1_EDGE_BYTES = 24    # index, weight, distance, t - 1 offset (portbench)
+P1_ROW_BYTES = 72     # means, rotation, inverse rotation in; 2 gradients out
+P1_EDGE_OPS = 100     # the three terms, forward and backward (portbench)
+P1_TOL = 1e-5         # losses relative; gradients x the largest + relative
+
+
+def physics_state(scene, device):
+    """The bench training at t = 1, through `window_main_path`'s t = 0 ->
+    t = 1 transition (kNN graph, foreground prefix, extrapolation): the
+    activated means and rotations, moved by seeded noise, the variables,
+    the fg & alive mask."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.data.synthetic import (
+        init_point_cloud, make_dataset)
+    from dynamic3dgaussians_tpu_torch.models import gaussians as G
+    from dynamic3dgaussians_tpu_torch.ops import quat
+    from dynamic3dgaussians_tpu_torch.train import optim
+    from dynamic3dgaussians_tpu_torch.train import trainer as T
+    from dynamic3dgaussians_tpu_torch.train.config import TrainConfig
+    gt = bench_gt(scene)
+    with torch.no_grad():
+        _, w2c, _ = make_dataset(gt, num_t=1, num_cams=TRAIN_CAMS, w=W, h=H,
+                                 f=F, radius=TRAIN_RADIUS, device=device)
+    params, variables = G.init_params(init_point_cloud(gt), w2c,
+                                      device=device)
+    opt = optim.init(params)
+    params, variables, opt, _ = G.compact_with_optimizer(params, variables,
+                                                         opt)
+    params, variables, opt = T.initialize_post_first_timestep(
+        params, variables, TrainConfig(), opt)
+    params, variables, opt = T.initialize_per_timestep(params, variables,
+                                                       opt)
+    # moved as by training steps, so that every term and gradient is live
+    gen = torch.Generator(device=device).manual_seed(20)
+    means = params["means3D"] + 0.01 * torch.randn(
+        params["means3D"].shape, generator=gen, device=device)
+    rots = params["unnorm_rotations"] + 0.05 * torch.randn(
+        params["unnorm_rotations"].shape, generator=gen, device=device)
+    fg = (params["seg_colors"][:, 0] > 0.5) & variables["alive"]
+    return means, quat.normalize(rots), variables, fg
+
+
+def phase_physics(scene, device, smi):
+    """P1 (`edge_losses_cuda`, forward and backward) against the plain
+    edge terms (`edge_losses_torch`) on the card, on the bench training's
+    t = 1 state (800,768 rows, the foreground prefix, 20 neighbours): the
+    three losses within P1_TOL relative, each gradient group within P1_TOL
+    of its largest |plain| + P1_TOL relative (dead rows masked), a second
+    call bitwise the first, one launch and one run each way. Times, fwd +
+    bwd with the upstream weights: replayed from a CUDA graph (`ms`,
+    `plain_ms`) and host-issued (`eager_ms`, `plain_eager_ms`); the bound
+    of the bytes the edges need (each edge's inputs once, each prefix row's
+    in and its gradients out, as `portbench/counts.py` reckons them)."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.ops.cuda import physics as P1
+    from dynamic3dgaussians_tpu_torch.tools.bench_sol import cuda_ms
+    from dynamic3dgaussians_tpu_torch.train import losses as L
+    t_start = time.perf_counter()
+    means, rots, variables, fg = physics_state(scene, device)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t_start
+
+    def call(fn):
+        m = means.detach().requires_grad_(True)
+        r = rots.detach().requires_grad_(True)
+        out = fn(m, r, variables, fg)
+        total = sum(g * out[k] for g, k in zip(P1_UPSTREAM, P1_TERMS))
+        dm, dr = torch.autograd.grad(total, [m, r])
+        return torch.stack([out[k].detach() for k in P1_TERMS]), dm, dr
+
+    take_physics()
+    got = call(P1.edge_losses_cuda)
+    torch.cuda.synchronize()
+    counts = take_physics()
+    want = call(L.edge_losses_torch)
+    repeat = call(P1.edge_losses_cuda)
+    alive = variables["alive"][:, None]
+    loss_rel = ((got[0] - want[0]).abs() / want[0].abs()).tolist()
+    grads = {}
+    for name, g, w in (("means", got[1], want[1]), ("rots", got[2],
+                                                    want[2])):
+        g, w = (torch.where(alive, x, torch.zeros_like(x)) for x in (g, w))
+        err = (g - w).abs()
+        scale = float(w.abs().max())
+        grads[name] = dict(
+            max_abs_err=float(err.max()), largest=scale,
+            ok=bool((err <= P1_TOL * scale + P1_TOL * w.abs()).all()))
+    row_ptr = variables["edge_row_ptr"]
+    n_dst, edges = row_ptr.shape[0] - 1, int(row_ptr[-1])
+    work = bound(edges * P1_EDGE_OPS,
+                 edges * P1_EDGE_BYTES + n_dst * P1_ROW_BYTES)
+    ms = graph_ms(lambda: call(P1.edge_losses_cuda), P1_REPS)
+    plain_ms = graph_ms(lambda: call(L.edge_losses_torch), P1_REPS)
+    eager_ms, _ = cuda_ms(lambda: call(P1.edge_losses_cuda), P1_REPS)
+    plain_eager_ms, _ = cuda_ms(lambda: call(L.edge_losses_torch), P1_REPS)
+    take_physics()
+    rec = dict(phase="physics_vs_plain", card=smi, rows=int(means.shape[0]),
+               n_dst=n_dst, edges=edges,
+               k=int(variables["neighbor_indices"].shape[1]),
+               losses=got[0].tolist(), plain_losses=want[0].tolist(),
+               loss_rel_err=loss_rel, grads=grads,
+               repeat_bitwise=all(torch.equal(a, b)
+                                  for a, b in zip(got, repeat)),
+               counts=counts, ms=ms, plain_ms=plain_ms, eager_ms=eager_ms,
+               plain_eager_ms=plain_eager_ms, setup_s=setup_s, **work)
+    emit(rec)
+    checks = {"losses": max(loss_rel) <= P1_TOL,
+              "grads": all(g["ok"] for g in grads.values()),
+              "repeat bitwise": rec["repeat_bitwise"],
+              "one launch and run each way": counts == {
+                  d: dict(launches=1, runs=1) for d in ("fwd", "bwd")}}
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"physics_vs_plain failed: {bad}")
+    return rec
 
 
 def phase_grad_golden(device):
@@ -5581,25 +5723,38 @@ def main() -> int:
             k2[table, rec["cv"]] = rec
     scene = bench_scene()
     e1 = phase_emit(scene, device, smi)
+    p1 = phase_physics(scene, device, smi)
     k3 = phase_k3(device, smi)
     phase_oracle(device)
     phase_grad_golden(device)
     view_rec = phase_main_path(scene, device, smi)
     pb_rec = phase_playback_main_path(scene, device, smi)
+    # P1's launches and runs by path: the paths that train at t > 0 (the
+    # parallel ranks run in processes of their own, uncounted here)
+    take_physics()
+    p1_paths = {}
     with tempfile.TemporaryDirectory() as tmp:
         train_rec = phase_train_main_path(scene, device, smi, tmp)
+        p1_paths["train"] = take_physics()
         phase_ckpt_main_path(train_rec, device, smi)
+        p1_paths["ckpt"] = take_physics()
         eval_rec = phase_evaluate_main_path(train_rec, device, smi)
         track_rec = phase_tracking(train_rec, device, smi)
         viewer_rec = phase_view_main_path(train_rec, device, smi)
         feature_rec = phase_feature_main_path(scene, device, smi, tmp)
+    take_physics()
     ego_rec = phase_ego_main_path(scene, device, smi)
+    p1_paths["ego"] = take_physics()
     with tempfile.TemporaryDirectory() as tmp:
         motion_rec = phase_motion_main_path(scene, device, smi, tmp)
     par_rec = phase_parallel_main_path(scene, device, smi)
+    take_physics()
     longrun_rec = phase_longrun_main_path(device, smi)
+    p1_paths["longrun"] = take_physics()
     window_rec = phase_window_main_path(scene, device, smi)
+    p1_paths["window"] = take_physics()
     variants_rec = phase_variants_main_path(scene, device, smi)
+    p1_paths["variants"] = take_physics()
     phase_tiled(scene, device, smi)
     phase_knn_approx(scene, device, smi)
     probe_rec = phase_probe_main_path(k3, device, smi)
@@ -5728,7 +5883,25 @@ def main() -> int:
                            bound_ms=e1["bench"]["bound_ms"],
                            bound_by=e1["bench"]["bound_by"],
                            kslot_bound_ms=e1["bench"]["kslot_bound"][
-                               "bound_ms"]))]
+                               "bound_ms"])),
+        # P1 on the bench training's t = 1 state: forward and backward
+        # (its four launches and the upstream weights' few ops) replayed
+        # from a CUDA graph; launches and runs per path, forward / backward
+        dict(name="physics_edges", route="cuda",
+             source="dynamic3dgaussians_tpu_torch/csrc/physics.cu",
+             replaces="dynamic3dgaussians_tpu/train/losses.py "
+                      "physics_losses (XLA)",
+             launches=p1_paths["train"]["fwd"]["launches"],
+             launches_by_path={p: [c["fwd"]["launches"], c["bwd"]["launches"]]
+                               for p, c in p1_paths.items()},
+             runs_by_path={p: [c["fwd"]["runs"], c["bwd"]["runs"]]
+                           for p, c in p1_paths.items()},
+             max_abs_err=max(g["max_abs_err"] for g in p1["grads"].values()),
+             loss_rel_err=max(p1["loss_rel_err"]), ms=p1["ms"],
+             plain_ms=p1["plain_ms"], eager_ms=p1["eager_ms"],
+             plain_eager_ms=p1["plain_eager_ms"], bound_ms=p1["bound_ms"],
+             bound_by=p1["bound_by"], library_ms=None, n_dst=p1["n_dst"],
+             edges=p1["edges"], k=p1["k"])]
         + variant_lines})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

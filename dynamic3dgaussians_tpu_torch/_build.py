@@ -125,6 +125,11 @@ def load_library() -> ctypes.CDLL:
     lib.d3g_emit_write.restype = i32
     lib.d3g_emit_math.argtypes = [vp, i64, i32, vp, vp]
     lib.d3g_emit_math.restype = i32
+    physics_common = [vp] * 8 + [i32] * 3
+    lib.d3g_physics_fwd.argtypes = physics_common + [vp] * 8
+    lib.d3g_physics_fwd.restype = i32
+    lib.d3g_physics_bwd.argtypes = physics_common + [i32] + [vp] * 12
+    lib.d3g_physics_bwd.restype = i32
     lib.d3g_mark_launch.argtypes = [i32, vp]
     lib.d3g_mark_launch.restype = i32
     lib.d3g_error_string.argtypes = [i32]

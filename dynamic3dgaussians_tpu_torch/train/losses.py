@@ -8,7 +8,8 @@ Port of `dynamic3dgaussians_tpu/train/losses.py`:
   * the per-camera colour correction exp(m) * img + c
   * the default loss weights
   * the physics losses of t > 0 (`physics_losses`): rigid, rot, iso,
-    floor, bg and soft_col_cons, masked at full capacity
+    floor, bg and soft_col_cons, masked at full capacity; on the card the
+    edge terms (rigid, rot, iso) run through the kernel P1
   * the trainer variants' terms: total variation, the masked image loss,
     the L1 depth loss and the disparity Pearson loss
 """
@@ -20,6 +21,7 @@ from typing import Dict
 import torch
 
 from dynamic3dgaussians_tpu_torch.ops import quat
+from dynamic3dgaussians_tpu_torch.ops.cuda import physics as P1
 from dynamic3dgaussians_tpu_torch.ops.neighbor import (EdgeReduction,
                                                        lookup_components)
 from dynamic3dgaussians_tpu_torch.ops.ssim import calc_ssim
@@ -105,12 +107,46 @@ def physics_losses(act_means: torch.Tensor, act_rots: torch.Tensor,
     neighbor_weight and neighbor_dist (cap, K), prev_inv_rot (cap, 4),
     prev_offset (cap, K, 3), prev_col (cap, 3), init_bg_pts (cap, 3) and
     init_bg_rot (cap, 4).
+
+    The edge terms (rigid, rot, iso) run as the plain `edge_losses_torch`
+    on CPU tensors and through the kernel P1 (`ops/cuda/physics.py`) on
+    CUDA ones; any other device raises.
     """
+    fg = is_fg & alive
+    dev = act_means.device
+    if dev.type == "cpu":
+        losses = edge_losses_torch(act_means, act_rots, variables, fg)
+    elif dev.type == "cuda":
+        losses = P1.edge_losses_cuda(act_means, act_rots, variables, fg)
+    else:
+        raise ValueError(f"physics_losses runs on cuda or cpu tensors, got "
+                         f"{dev}")
+
+    y = act_means[:, 1]
+    losses["floor"] = masked_mean(torch.maximum(y, torch.zeros_like(y)), fg)
+
+    # |x| with the reference's derivative at 0: on the first step of each
+    # t > 0 these differences are exactly 0 (see `_abs`)
+    bg = (~is_fg) & alive
+    losses["bg"] = (
+        masked_mean(_abs(act_means - variables["init_bg_pts"]).sum(dim=-1),
+                    bg)
+        + masked_mean(_abs(act_rots - variables["init_bg_rot"]).sum(dim=-1),
+                      bg))
+    losses["soft_col_cons"] = masked_mean(
+        _abs(rgb_colors - variables["prev_col"]).sum(dim=-1), alive)
+    return losses
+
+
+def edge_losses_torch(act_means: torch.Tensor, act_rots: torch.Tensor,
+                      variables: Dict, fg: torch.Tensor) -> Dict:
+    """{"rigid", "rot", "iso"}: the edge terms of `physics_losses` over
+    every (capacity row, neighbour) pair, masked to fg (foreground & alive)
+    rows' valid edges. The plain version of P1 (`ops/cuda/physics.py`)."""
     idx = variables["neighbor_indices"]
     plan = EdgeReduction(variables["edge_rank"], variables["edge_row_ptr"],
                          0)
     w = variables["neighbor_weight"]                          # (cap, K)
-    fg = is_fg & alive
     row_ok = fg[:, None] & (idx >= 0)
 
     rel_rot = quat.normalize(quat.quat_mult(act_rots,
@@ -147,20 +183,6 @@ def physics_losses(act_means: torch.Tensor, act_rots: torch.Tensor,
     curr_mag = torch.sqrt(ox * ox + oy * oy + oz * oz + 1e-20)
     losses["iso"] = masked_mean(torch.sqrt(
         (curr_mag - variables["neighbor_dist"]) ** 2 * w + 1e-20), row_ok)
-
-    y = act_means[:, 1]
-    losses["floor"] = masked_mean(torch.maximum(y, torch.zeros_like(y)), fg)
-
-    # |x| with the reference's derivative at 0: on the first step of each
-    # t > 0 these differences are exactly 0 (see `_abs`)
-    bg = (~is_fg) & alive
-    losses["bg"] = (
-        masked_mean(_abs(act_means - variables["init_bg_pts"]).sum(dim=-1),
-                    bg)
-        + masked_mean(_abs(act_rots - variables["init_bg_rot"]).sum(dim=-1),
-                      bg))
-    losses["soft_col_cons"] = masked_mean(
-        _abs(rgb_colors - variables["prev_col"]).sum(dim=-1), alive)
     return losses
 
 

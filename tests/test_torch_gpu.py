@@ -26,7 +26,15 @@ variants (the same cell pipeline; the scan and the sums over 256 pixels in
 another order) and 1e-6 for dma_only (sums of 4096 values per block). The
 pair emission E1 must equal the plain emission bitwise (keys, gaussian
 ids, n_dropped_rect), and the numpy model of E1 (`torch_emit_model.py`)
-in the card's arithmetic.
+in the card's arithmetic. The physics kernel P1 against the plain edge
+terms on the card: the losses relative 1e-5 and each gradient group
+within 1e-5 of its largest |plain| + 1e-5 |plain| (float32 sums of up to
+2 M edges in another order: the kernel's blocks against torch.sum over
+every capacity slot, the chain rule per edge against autograd's over K),
+and against its numpy model (`torch_physics_model.py`, the CPU's rsqrt
+and no FMA) the same; rows past the plan's prefix and masked rows exactly
+0; a replayed graph of it, and a replayed training window through it,
+bitwise repeatable.
 """
 
 import dataclasses
@@ -36,15 +44,18 @@ import pytest
 import torch
 
 import torch_emit_model as EM
+import torch_physics_model as PM
 from dynamic3dgaussians_tpu_torch.ops import binning as tbin
 from dynamic3dgaussians_tpu_torch.ops import camera as tcam
 from dynamic3dgaussians_tpu_torch.ops import projection as tproj
 from dynamic3dgaussians_tpu_torch.ops import rasterize as trast
 from dynamic3dgaussians_tpu_torch.ops.cuda import emit as E1
 from dynamic3dgaussians_tpu_torch.ops.cuda import launches
+from dynamic3dgaussians_tpu_torch.ops.cuda import physics as P1
 from dynamic3dgaussians_tpu_torch.ops.cuda import raster_bwd as K2
 from dynamic3dgaussians_tpu_torch.ops.cuda import raster_fwd as K1
 from dynamic3dgaussians_tpu_torch.ops.cuda import sol_probe as K3
+from dynamic3dgaussians_tpu_torch.train import losses as L
 from test_torch_cases import (CASES, GRID_H, GRID_W, LOG2E, TH, TW,
                               kernel_kw, record_table)
 
@@ -520,3 +531,172 @@ def test_cuda_render_emits_through_e1(cuda_device):
     assert E1.emit_pairs_cuda.launches == before + 1
     trast.render(cam, *args, method="torch", device=cuda_device)
     assert E1.emit_pairs_cuda.launches == before + 1
+
+
+# ---------------------------------------------------------------- P1
+
+P1_TERMS = ("rigid", "rot", "iso")
+P1_UPSTREAM = (4.0, 4.0, 2.0)
+# (cap, n_pre, K, dead_nan): small graphs, and the bench training's table
+# (800,768 rows, a 100,000-row foreground prefix, 20 neighbours)
+P1_CASES = {"small_k20": (512, 301, 20, False),
+            "small_k4_dead": (512, 333, 4, True),
+            "bench": (800768, 100000, 20, False)}
+
+
+def _p1_inputs(dev, case, seed=0):
+    cap, n_pre, k, dead = P1_CASES[case]
+    means, rots, variables, fg, alive = PM.edge_graph(seed, cap, n_pre, k,
+                                                      dead_nan=dead)
+    return (means, rots, variables, fg, alive,
+            [means.to(dev), rots.to(dev),
+             {key: v.to(dev) for key, v in variables.items()}, fg.to(dev),
+             alive.to(dev)])
+
+
+def _p1_terms(fn, means, rots, variables, fg):
+    m = means.clone().requires_grad_(True)
+    r = rots.clone().requires_grad_(True)
+    out = fn(m, r, variables, fg)
+    total = sum(g * out[k] for g, k in zip(P1_UPSTREAM, P1_TERMS))
+    dm, dr = torch.autograd.grad(total, [m, r])
+    return torch.stack([out[k].detach() for k in P1_TERMS]), dm, dr
+
+
+def _assert_p1_close(got, want, alive, what):
+    losses, dm, dr = (np.asarray(x.cpu() if torch.is_tensor(x) else x)
+                      for x in got)
+    wl, wdm, wdr = (np.asarray(x.cpu() if torch.is_tensor(x) else x)
+                    for x in want)
+    np.testing.assert_allclose(losses, wl, rtol=1e-5, atol=0, err_msg=what)
+    a = np.asarray(alive.cpu())[:, None]
+    for name, g, w in (("means", dm, wdm), ("rots", dr, wdr)):
+        g, w = np.where(a, g, 0.0), np.where(a, w, 0.0)
+        err = np.abs(g - w)
+        assert (err <= 1e-5 * np.abs(w).max() + 1e-5 * np.abs(w)).all(), \
+            (what, name, float(err.max()), float(np.abs(w).max()))
+
+
+@pytest.mark.parametrize("case", sorted(P1_CASES))
+def test_cuda_physics_matches_plain(cuda_device, case):
+    """P1's losses and gradients against the plain edge terms on the card
+    and, on the small graphs, against the numpy model of its passes; the
+    kernel's gradient rows past the prefix exactly 0, one forward and one
+    backward launch a call."""
+    means, rots, variables, fg, alive, dev_in = _p1_inputs(cuda_device,
+                                                           case)
+    before = (P1.edge_losses_cuda.launches, P1.edge_grads_cuda.launches)
+    got = _p1_terms(P1.edge_losses_cuda, *dev_in[:4])
+    torch.cuda.synchronize()
+    assert (P1.edge_losses_cuda.launches,
+            P1.edge_grads_cuda.launches) == (before[0] + 1, before[1] + 1)
+    want = _p1_terms(L.edge_losses_torch, *dev_in[:4])
+    _assert_p1_close(got, want, alive, "vs plain")
+    n_dst = variables["edge_row_ptr"].shape[0] - 1
+    assert not got[1][n_dst:].any() and not got[2][n_dst:].any()
+    if case != "bench":
+        ml, _, mdm, mdr = PM.p1_model(means, rots, variables, fg,
+                                      P1_UPSTREAM)
+        _assert_p1_close(got, (ml, mdm, mdr), alive, "vs model")
+
+
+def test_cuda_physics_counts_its_runs_in_a_graph(cuda_device):
+    """P1's forward and backward captured in one CUDA graph: each replay
+    runs both (their device counters), the host counts see the capture
+    once, and every replay's output is bitwise the eager one."""
+    *_, dev_in = _p1_inputs(cuda_device, "small_k20")
+    means, rots, variables, fg, _ = dev_in
+    m = means.clone().requires_grad_(True)
+    r = rots.clone().requires_grad_(True)
+
+    def run():
+        out = P1.edge_losses_cuda(m, r, variables, fg)
+        total = sum(g * out[k] for g, k in zip(P1_UPSTREAM, P1_TERMS))
+        dm, dr = torch.autograd.grad(total, [m, r])
+        return torch.stack([out[k] for k in P1_TERMS]).detach(), dm, dr
+
+    want = run()
+    launches.zero(P1.edge_losses_cuda)
+    launches.zero(P1.edge_grads_cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = run()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    for fn in (P1.edge_losses_cuda, P1.edge_grads_cuda):
+        assert fn.launches == 2
+        assert launches.runs(fn) == 4
+
+
+def _p1_world(dev):
+    """A t = 1 state of a small synthetic scene on the card (the port's own
+    t = 0 -> t = 1 transition: kNN graph, foreground prefix, extrapolation)
+    and its 3 cameras."""
+    from dynamic3dgaussians_tpu_torch.data import synthetic
+    from dynamic3dgaussians_tpu_torch.models import gaussians as G
+    from dynamic3dgaussians_tpu_torch.train import optim
+    from dynamic3dgaussians_tpu_torch.train import trainer as T
+    from dynamic3dgaussians_tpu_torch.train.config import (RasterSettings,
+                                                           TrainConfig)
+    scene = synthetic.make_gt_scene(n_fg=50, n_bg=90, seed=3)
+    data, w2c, _ = synthetic.make_dataset(scene, 2, num_cams=3, w=64, h=48,
+                                          f=55.0, device=dev)
+    pt = synthetic.init_point_cloud(scene, noise=0.05)
+    cfg = TrainConfig(num_timesteps=2, capacity=512, num_knn=8,
+                      raster=RasterSettings(chunk=64, max_per_tile=512,
+                                            max_tiles_per_gaussian=64,
+                                            pairs_per_gaussian=16))
+    params, variables = G.init_params(pt, w2c, capacity=512, device=dev)
+    opt = optim.init(params)
+    params, variables, opt, _ = G.compact_with_optimizer(params, variables,
+                                                         opt)
+    params, variables, opt = T.initialize_post_first_timestep(
+        params, variables, cfg, opt)
+    params, variables, opt = T.initialize_per_timestep(params, variables,
+                                                       opt)
+    lrs = {key: torch.tensor(1e-3, device=dev) for key in params}
+    return (params, opt, variables), data[1], cfg, lrs
+
+
+def test_cuda_train_step_and_window_run_p1(cuda_device):
+    """A t = 1 train step on the card routes its edge terms through P1 (one
+    forward and one backward launch), and a training window of 4 steps (a
+    CUDA graph of the step, replayed) runs P1 once a step on the device
+    and gives bitwise the same state on a second call from the same
+    start."""
+    from dynamic3dgaussians_tpu_torch.train import trainer as T
+    state, frames, cfg, lrs = _p1_world(cuda_device)
+    rcfg = T.raster_config(cfg)
+    step = T.make_train_step(cfg, rcfg)
+    before = (P1.edge_losses_cuda.launches, P1.edge_grads_cuda.launches)
+    _, _, _, m = step(*state, frames[0], lrs, False)
+    torch.cuda.synchronize()
+    assert (P1.edge_losses_cuda.launches,
+            P1.edge_grads_cuda.launches) == (before[0] + 1, before[1] + 1)
+    assert float(m["loss_rigid"]) > 0 and np.isfinite(float(m["loss"]))
+
+    sel = torch.tensor([0, 2, 1, 0])
+    scan = T.make_train_scan(cfg, rcfg, step)
+    stack = T.stack_timestep_data(frames)
+    outs = []
+    for _ in range(2):
+        launches.zero(P1.edge_losses_cuda)
+        launches.zero(P1.edge_grads_cuda)
+        p, o, v, _ = scan(*state, stack, sel, lrs, False)
+        torch.cuda.synchronize()
+        assert launches.runs(P1.edge_losses_cuda) == 4
+        assert launches.runs(P1.edge_grads_cuda) == 4
+        outs.append((p, o))
+    assert scan.window.stats["replays"] > 0
+    (p1, o1), (p2, o2) = outs
+    for key in p1:
+        assert torch.equal(p1[key], p2[key]), key
+        assert torch.equal(o1.mu[key], o2.mu[key]), key
+        assert torch.equal(o1.nu[key], o2.nu[key]), key
