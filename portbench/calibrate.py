@@ -4,9 +4,9 @@
         [--modes control,half_batch,unchanged]
 
 For each seed it makes the cell's inputs and follows the cell's first
-steps (the cameras the program's set-up would run) with the plain
-reference in float32, TF32 off, and then once more per mode, put in the
-program's place:
+steps (the steps the program's set-up would run) with the plain
+reference of the cell's program (`manifest.program`) in float32, TF32
+off, and then once more per mode, put in the program's place:
 
   control     the reference with TF32 on (the precision below the
               configuration's float32);
@@ -28,10 +28,8 @@ import time
 
 import torch
 
-from portbench import check, manifest, scene
+from portbench import check, manifest
 from portbench.harness import precision
-from portbench.loop import Schedule
-from portbench.reference import train as ref_train
 
 
 def readings(workload: str, seed: int, modes, device="cuda"):
@@ -39,16 +37,16 @@ def readings(workload: str, seed: int, modes, device="cuda"):
     cell = manifest.cell(bench, workload)
     cfg = manifest.config(cell["config"])
     traffic = manifest.traffic(cell["traffic"])
+    program = manifest.program(cfg)
     dev = torch.device(device)
     with precision(False):
-        inputs = scene.make(cfg, seed, dev)
-        cams = Schedule(traffic, cfg["num_cams"], cfg["iters_per_timestep"],
-                        seed).first_cams(traffic["check_min_steps"])
-        truth = ref_train.follow(inputs, cfg, cams)
+        inputs = program.make(cfg, seed, dev)
+        cams = program.first_cams(cfg, traffic, seed)
+        truth = program.follow(inputs, cfg, cams)
     for mode in modes:
         t0 = time.perf_counter()
         with precision(mode == "control"):
-            other = ref_train.follow(inputs, cfg, cams, fault=(
+            other = program.follow(inputs, cfg, cams, fault=(
                 None if mode == "control" else mode))
         yield dict(workload=workload, seed=seed, mode=mode,
                    seconds=time.perf_counter() - t0,

@@ -1,7 +1,9 @@
 """Work counts: the bytes and float32 operations a step of these inputs
 needs, worked out from shapes and from the plain reference's walk of the
-cell's own scene (`reference/train.py::walk_stats`), never from the
-program's counters, so that any implementation is held to the same work.
+cell's own scene (the program's `walk_stats`; for `panoptic_dynamic`
+`reference/train.py::walk_stats`), never from the program's counters, so
+that any implementation is held to the same work. A program's
+`step_counts` adds them up over the launches of its step.
 
 Each count is a lower one: every input byte read once, every output byte
 written once, and only the operations the result cannot do without. A
@@ -18,10 +20,16 @@ roofline share over such a count can only read low, never past 100 %.
   * E1 (pair emission): each table row's inputs once (x, y, the conic,
     opacity, radius and the valid flag: `E1_ROW_BYTES`) and 8 bytes per
     live pair written (its tile key and slot);
-  * the step: K1 + K2 + E1, the projection and its gradient over the live
-    rows, the physics losses over the foreground's edges and the live
-    rows, the image losses (L1 and SSIM, forward and backward) over the
-    pixels, and Adam over the live rows' parameters.
+  * P1 (the physics losses' edge terms): per foreground edge its index,
+    weight, distance and offset (`EDGE_BYTES`), per foreground row its
+    means, rotations and their gradients (`FG_ROW_BYTES`); `EDGE_OPS` an
+    edge;
+  * a render (`render`): K1 + K2 + E1, the projection and its gradient
+    over the live rows, and the image losses (L1 and SSIM, forward and
+    backward) over the pixels;
+  * what a step does once (`update`): the physics losses over the
+    foreground's edges and the live rows, and Adam over the parameters;
+  * the step of one render (`step`): the two added.
 """
 
 from __future__ import annotations
@@ -77,31 +85,50 @@ def e1(table_rows: int, live_pairs: int) -> Dict[str, float]:
     return dict(bytes=table_rows * E1_ROW_BYTES + live_pairs * 8, flops=0)
 
 
-def step(walk: Dict, cfg: Dict) -> Dict[str, float]:
-    """The whole step's counts for one camera's render (`walk`: the
-    reference's live and read pairs, tiles, live rows, foreground rows,
-    edges and parameter floats)."""
+def p1(fg_rows: int, edges: int) -> Dict[str, float]:
+    return dict(bytes=edges * EDGE_BYTES + fg_rows * FG_ROW_BYTES,
+                flops=edges * EDGE_OPS)
+
+
+def add(*parts: Dict[str, float]) -> Dict[str, float]:
+    """The sum of counts."""
+    return dict(bytes=sum(p["bytes"] for p in parts),
+                flops=sum(p["flops"] for p in parts))
+
+
+def render(walk: Dict, cfg: Dict) -> Dict[str, float]:
+    """One camera's render and its image losses, forward and backward
+    (`walk`: the reference's live and read pairs, tiles and live rows)."""
     n_chan = 6 + cfg["semantic_dim"]
-    parts = [k1(walk["read_pairs"], walk["tiles"], n_chan),
-             k2(walk["read_pairs"], walk["tiles"], n_chan),
-             e1(cfg["capacity"], walk["live_pairs"])]
-    rows, fg, edges = walk["rows"], walk["fg_rows"], walk["edges"]
+    rows = walk["rows"]
     pixels = cfg["width"] * cfg["height"]
     loss_elems = 6 * pixels
     if cfg["semantic_dim"]:
         fh, fw = cfg["feature_hw"]
         loss_elems += fh * fw * cfg["semantic_dim"]
-    parts.append(dict(bytes=2 * rows * PROJ_ROW_BYTES,
-                      flops=rows * PROJ_ROW_OPS))
-    parts.append(dict(bytes=edges * EDGE_BYTES + fg * FG_ROW_BYTES
-                      + rows * ROW_LOSS_BYTES,
-                      flops=edges * EDGE_OPS + rows * ROW_LOSS_OPS))
-    parts.append(dict(bytes=loss_elems * PIXEL_LOSS_BYTES,
-                      flops=loss_elems * PIXEL_LOSS_OPS))
-    parts.append(dict(bytes=walk["param_floats"] * ADAM_BYTES,
-                      flops=walk["param_floats"] * ADAM_OPS))
-    return dict(bytes=sum(p["bytes"] for p in parts),
-                flops=sum(p["flops"] for p in parts))
+    return add(k1(walk["read_pairs"], walk["tiles"], n_chan),
+               k2(walk["read_pairs"], walk["tiles"], n_chan),
+               e1(cfg["capacity"], walk["live_pairs"]),
+               dict(bytes=2 * rows * PROJ_ROW_BYTES,
+                    flops=rows * PROJ_ROW_OPS),
+               dict(bytes=loss_elems * PIXEL_LOSS_BYTES,
+                    flops=loss_elems * PIXEL_LOSS_OPS))
+
+
+def update(walk: Dict, cfg: Dict) -> Dict[str, float]:
+    """What a step does once, whatever its renders: the physics losses
+    and Adam (`walk`: live and foreground rows, edges, parameter
+    floats)."""
+    rows, edges = walk["rows"], walk["edges"]
+    return add(p1(walk["fg_rows"], edges),
+               dict(bytes=rows * ROW_LOSS_BYTES, flops=rows * ROW_LOSS_OPS),
+               dict(bytes=walk["param_floats"] * ADAM_BYTES,
+                    flops=walk["param_floats"] * ADAM_OPS))
+
+
+def step(walk: Dict, cfg: Dict) -> Dict[str, float]:
+    """The whole step's counts for a step of one camera's render."""
+    return add(render(walk, cfg), update(walk, cfg))
 
 
 def peaks(kind: str) -> Optional[Dict[str, float]]:

@@ -1,11 +1,18 @@
 """One run of one cell: set-up, the measured or traced window, the
 comparison with the plain reference, and the result.
 
+The configuration names the program that runs it (`manifest.program`:
+`programs/<program>.py`, by default `panoptic_dynamic`); the harness
+reaches the trainer, its seeded inputs and its reference only through
+that module, so another trainer comes in as a new program file with no
+edit here.
+
   1. set-up (timed from the process's start): the seeded inputs
-     (`scene.make`), the program's state and loop (`loop.ProgramRun`),
-     and the loop's first calls until the traffic's `check_min_steps`
-     steps are done, read for the comparison (this also warms every
-     shape the window uses: the eager step, and a window's capture);
+     (`program.make`), the program's state and loop
+     (`program.ProgramRun`), and the loop's first calls until the
+     traffic's `check_min_steps` steps are done, read for the comparison
+     (this also warms every shape the window uses: the eager step, and a
+     window's capture);
   2. the window: the loop's calls for `--seconds`, ended by a
      synchronise, its time over the steps completed; or, with --trace 1,
      the traffic's `trace_steps` steps timed, as many again under
@@ -13,8 +20,8 @@ comparison with the plain reference, and the result.
      program's state;
   3. the device's memory peak is read, the program's state dropped, and
      the plain reference follows the first steps from the same inputs
-     (`reference/train.py::follow`, float32 with TF32 off); the numbers
-     of `check.py` against `limits/<workload>.json` decide `correct`.
+     (`program.follow`, float32 with TF32 off); the numbers of
+     `check.py` against `limits/<workload>.json` decide `correct`.
 """
 
 from __future__ import annotations
@@ -29,9 +36,8 @@ from typing import Dict, List, Optional
 
 import torch
 
-from portbench import check, manifest, scene
-from portbench.loop import SPANS, ProgramRun, _sync
-from portbench.reference import train as ref_train
+from portbench import check, manifest
+from portbench.loop import SPANS, _sync
 from portbench.trace import Trace, run_traced
 
 
@@ -54,10 +60,11 @@ class Run:
     """What the metric readers see of a run."""
 
     def __init__(self, cfg: Dict, traffic: Dict, device: torch.device,
-                 inputs: Dict):
+                 inputs: Dict, program_module):
         self.cfg, self.traffic = cfg, traffic
         self.device, self.inputs = device, inputs
-        self.program: Optional[ProgramRun] = None
+        self.program_module = program_module
+        self.program = None         # the module's ProgramRun, until freed
         self.setup_s = math.nan
         self.window_s = math.nan
         self.untraced_step_s = math.nan
@@ -66,18 +73,21 @@ class Run:
         self.trace_cams: List[int] = []
         self.window_stats: Optional[Dict] = None
         self.probes: Dict = {}
-        self._walks: Dict[int, Dict] = {}
+        self._counts: Dict[int, Dict] = {}
 
-    def walks(self, cams) -> List[Dict]:
-        """The reference's work stats of each camera's render at the
-        seeded start (`reference/train.py::walk_stats`), cached."""
-        todo = sorted(set(cams) - set(self._walks))
+    def counts(self, cams) -> List[Dict]:
+        """Per step, the program's `step_counts` of its work at the seeded
+        start (`walk_stats`): each kernel's {"bytes", "flops"} over its
+        launches in the step, and the whole step's under "step"; cached by
+        the step's key."""
+        todo = sorted(set(cams) - set(self._counts))
         if todo:
+            mod = self.program_module
             with precision(False):
-                for c, st in zip(todo, ref_train.walk_stats(
-                        self.inputs, self.cfg, todo)):
-                    self._walks[c] = st
-        return [self._walks[c] for c in cams]
+                walks = mod.walk_stats(self.inputs, self.cfg, todo)
+            for c, walk in zip(todo, walks):
+                self._counts[c] = mod.step_counts(walk, self.cfg)
+        return [self._counts[c] for c in cams]
 
     def busy_share(self) -> float:
         """The device's busy seconds per traced step over the seconds per
@@ -116,6 +126,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     traffic = dict(manifest.traffic(cell["traffic"]),
                    **(traffic_override or {}))
     limits = manifest.limits(workload)["limits"]
+    program = manifest.program(cfg)
     dev = torch.device(device)
     if dev.type == "cuda":
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -123,12 +134,12 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
 
     phases = {"imports_s": time.perf_counter() - t0}
     with precision(False):
-        inputs = scene.make(cfg, seed, dev)
+        inputs = program.make(cfg, seed, dev)
     _sync(dev)
     phases["inputs_s"] = time.perf_counter() - t0
-    run = Run(cfg, traffic, dev, inputs)
-    prog = run.program = ProgramRun(inputs, cfg, traffic, seed, dev,
-                                    graph_factory=graph_factory)
+    run = Run(cfg, traffic, dev, inputs, program)
+    prog = run.program = program.ProgramRun(inputs, cfg, traffic, seed, dev,
+                                            graph_factory=graph_factory)
     _sync(dev)
     phases["program_s"] = time.perf_counter() - t0
     phases.update(prog.timings)
@@ -184,7 +195,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
 
     t1 = time.perf_counter()
     with precision(False):
-        reference = ref_train.follow(inputs, cfg, first["cams"])
+        reference = program.follow(inputs, cfg, first["cams"])
     phases["reference_s"] = time.perf_counter() - t1
     correct, shown = check.judge(check.numbers(first, reference), limits)
     metrics = {}

@@ -1,12 +1,11 @@
 """k2_roofline: the backward tile kernel K2 (`csrc/raster_bwd.cu`: its tile
 order pass and the kernel)."""
 
-from portbench import counts, readers
+from portbench import readers
 
 PARTS = ("raster_bwd_kernel", "tile_order_kernel")
 MAIN = "raster_bwd_kernel"
 
 
 def read(run):
-    return readers.roofline(run, PARTS, MAIN, lambda w, cfg: counts.k2(
-        w["read_pairs"], w["tiles"], 6 + cfg["semantic_dim"]))
+    return readers.roofline(run, PARTS, MAIN, "k2")

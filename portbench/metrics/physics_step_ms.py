@@ -1,7 +1,7 @@
 """physics_step_ms: the device time of the physics losses inside a replayed
 step: from the `physics` mark to `image_loss_bwd` (the losses, the weighted
-sum and their backward); the in-step counterpart of `physics_ms`, in ms; a
-mean over the marked stretch of `spans.probe` (`portbench/spans.py`)."""
+sum and their backward), in ms; a mean over the marked stretch of
+`spans.probe` (`portbench/spans.py`)."""
 
 from portbench import spans
 

@@ -14,17 +14,20 @@ def card_peaks(run):
     return counts.peaks(torch.cuda.get_device_name(run.device))
 
 
-def roofline(run, parts, main: str, count_fn):
-    """100 x the kernel's least time (`counts.least_seconds` of
-    count_fn(walk, cfg), averaged over the traced steps' cameras) over its
-    device time per step; None where the card has no peaks or the trace
-    did not see the kernel run once a step."""
+def roofline(run, parts, main: str, kernel: str):
+    """100 x the kernel's least time a step (`counts.least_seconds` of the
+    program's count of `kernel` a step, averaged over the traced steps) over
+    its device time per step; None where the card has no peaks, the
+    program counts no such kernel or the trace did not see it run once a
+    step."""
     peak = card_peaks(run)
     per_step = run.kernel_time(parts, main)
     if peak is None or not per_step:
         return None
-    least = [counts.least_seconds(count_fn(w, run.cfg), peak)
-             for w in run.walks(run.trace_cams)]
+    steps = run.counts(run.trace_cams)
+    if not all(kernel in c for c in steps):
+        return None
+    least = [counts.least_seconds(c[kernel], peak) for c in steps]
     return 100.0 * (sum(least) / len(least)) / per_step
 
 

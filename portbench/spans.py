@@ -64,7 +64,9 @@ MARK = re.compile(r"d3g_mark<d3g_phase::(\w+)>")
 READ = "DtoH"              # the window's one host read, a device-to-host copy
 WINDOW = "spans_window"
 KEY = "spans"
-ATTEMPTS = 2
+# a stretch is traced anew where it recaptured or its profile lost the
+# records of its last steps (about one stretch in seven on the card)
+ATTEMPTS = 4
 TOP_OPS, TOP_GAPS = 5, 10
 
 Interval = Tuple[float, float, str]       # (start us, end us, name)
@@ -148,6 +150,11 @@ def reduce(ops: Sequence[Interval], spans: Sequence[Interval],
     (times in us). Returns {"metrics": the six metrics in ms, "line": the
     breakdown}, or None (see the module's note)."""
     w0, w1 = window
+    # the profile begins and ends with the device synchronised, so every
+    # device op in it is the stretch's; but the device's clock, converted
+    # to the host's, can read some ms past the host's end of the stretch
+    # (cutting the last step's marks): the stretch ends at its last op
+    w1 = max([w1] + [e for _, e, _ in ops])
     ops = sorted((max(s, w0), min(e, w1), n) for s, e, n in ops
                  if e > w0 and s < w1)
     steps = _steps(ops, n_steps, n_windows) if n_steps and n_windows \
@@ -264,7 +271,8 @@ def probe(run) -> None:
     """Once a run: the traced stretch of marked windows, reduced, in
     `run.probes["spans"]` (None where there is nothing to read). A stretch
     in which a window was captured again (a redo at a larger pair
-    capacity) is traced anew, up to ATTEMPTS stretches."""
+    capacity), or whose marks are not whole, is traced anew, up to
+    ATTEMPTS stretches."""
     if KEY in run.probes or run.device.type != "cuda":
         return
     run.probes[KEY] = None

@@ -23,12 +23,12 @@ class Deferred:
         self.fn()
 
 
-def tiny_run(workload, seed=20240611, trace=False):
+def tiny_run(workload, seed=20240611, trace=False, cfg_extra=None):
     """One run of `workload` at the tiny size on the CPU, the harness's
-    look for a card skipped."""
+    look for a card skipped; `cfg_extra` adds to its configuration."""
     torch.set_num_threads(4)
     cfg = dict(TINY, **(TINY_FEATURES if workload.startswith("feat32")
-                        else {}))
+                        else {}), **(cfg_extra or {}))
     traffic = TINY_WINDOW if workload.endswith("window") else None
     return harness.run_cell(workload, seed, 0.2, trace, device="cpu",
                             graph_factory=Deferred, cfg_override=cfg,

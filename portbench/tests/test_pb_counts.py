@@ -44,6 +44,21 @@ def test_step_sums_its_parts():
                    "flops": sum(p["flops"] for p in parts)}
 
 
+def test_p1_hand_count():
+    # 24 B an edge, 72 B a foreground row, 100 operations an edge
+    assert counts.p1(3, 7) == {"bytes": 7 * 24 + 3 * 72, "flops": 7 * 100}
+
+
+def test_a_step_is_its_render_and_its_update():
+    walk = dict(read_pairs=3, live_pairs=4, tiles=2, rows=5, fg_rows=2,
+                edges=4, param_floats=50)
+    cfg = dict(semantic_dim=0, capacity=8, width=4, height=2)
+    render, update = counts.render(walk, cfg), counts.update(walk, cfg)
+    assert update == {"bytes": 4 * 24 + 2 * 72 + 5 * 120 + 50 * 28,
+                      "flops": 4 * 100 + 5 * 30 + 50 * 10}
+    assert counts.add(render, update) == counts.step(walk, cfg)
+
+
 def test_least_seconds_takes_the_larger_floor():
     peak = {"fp32_flops_per_s": 1e3, "bytes_per_s": 1e2}
     assert counts.least_seconds({"flops": 4e3, "bytes": 1e2}, peak) == 4.0

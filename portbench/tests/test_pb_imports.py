@@ -2,13 +2,39 @@
 compared by whole top-level names (the port's own name begins with the
 JAX package's)."""
 
+import ast
+import glob
+import os
 import subprocess
 import sys
 import types
 
+import pytest
+
 from portbench import manifest, run
 
 ROOT = manifest.root()
+# the harness's own files: they reach a trainer, its seeded inputs and its
+# reference only through the program a configuration names
+HARNESS = ["harness.py", "calibrate.py", "spans.py", "readers.py"] + sorted(
+    os.path.relpath(p, manifest.PKG) for kind in ("metrics", "e2e")
+    for p in glob.glob(os.path.join(manifest.PKG, kind, "*.py")))
+PROGRAM_ONLY = ("portbench.scene", "portbench.reference",
+                "portbench.loop.ProgramRun", "portbench.loop.Schedule",
+                "dynamic3dgaussians_tpu_torch.train",
+                "dynamic3dgaussians_tpu_torch.models")
+
+
+def imported_names(path):
+    """Every module and name that the file at `path` imports, dotted."""
+    with open(path) as fh:
+        tree = ast.parse(fh.read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            yield node.module
+            yield from (f"{node.module}.{a.name}" for a in node.names)
 
 
 def test_names_are_compared_whole(monkeypatch):
@@ -19,6 +45,13 @@ def test_names_are_compared_whole(monkeypatch):
                         types.ModuleType("y"))
     monkeypatch.setitem(sys.modules, "jaxlib.xla", types.ModuleType("z"))
     assert run.forbidden_modules() == ["dynamic3dgaussians_tpu", "jaxlib"]
+
+
+@pytest.mark.parametrize("name", HARNESS)
+def test_the_harness_reaches_the_program_only_through_the_manifest(name):
+    found = [m for m in imported_names(os.path.join(manifest.PKG, name))
+             if any(m == p or m.startswith(p + ".") for p in PROGRAM_ONLY)]
+    assert found == []
 
 
 def test_a_whole_run_loads_none_of_them():

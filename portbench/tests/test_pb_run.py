@@ -40,8 +40,8 @@ def test_traced_run_reads_its_layers():
     result, _ = tiny_run("sports_t1_window", trace=True)
     assert result["correct"] is True
     # no device here: the readers of the trace's device time are silent,
-    # the counters and the CUDA-event probe (host clock here) are not
-    assert set(result["metrics"]) == {"physics_ms", "window_redo_share"}
+    # the counter is not
+    assert set(result["metrics"]) == {"window_redo_share"}
     assert result["device"]["window_s"] > 0
     assert "device_ops" in result["breakdown"]
 

@@ -136,3 +136,13 @@ def test_none_where_marks_are_not_whole(fault):
     else:
         n_windows = 3
     assert spans.reduce(ops, host, window, n_steps, n_windows, BENCH) is None
+
+
+def test_device_ops_past_the_hosts_end_stay_in_the_stretch():
+    # the device's clock may read past the host's end of the stretch: the
+    # last step's update mark and the window's read lie after it
+    ops, host, window = build()
+    whole = spans.reduce(ops, host, window, 6, 2, BENCH)
+    last_update = max(s for s, _, n in ops if n == mark_name("update"))
+    cut = (window[0], last_update - 1)
+    assert spans.reduce(ops, host, cut, 6, 2, BENCH) == whole

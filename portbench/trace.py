@@ -9,7 +9,6 @@ the host spent most of it in.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Callable, Dict, List, Tuple
 
 import torch
@@ -120,26 +119,3 @@ def reduce(events, span_names) -> Trace:
                  kernel_s=kernel_s, kernel_runs=kernel_runs,
                  launches=launches, syncs=syncs,
                  gaps=labelled)
-
-
-def cuda_events_ms(fn: Callable[[], None], reps: int,
-                   device: torch.device) -> float:
-    """Median milliseconds of `fn` between two CUDA events, over `reps`
-    runs after one untimed run; on the CPU the host clock."""
-    fn()
-    times = []
-    for _ in range(reps):
-        if device.type == "cuda":
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        else:
-            t0 = time.perf_counter()
-            fn()
-            times.append((time.perf_counter() - t0) * 1e3)
-    times.sort()
-    return times[len(times) // 2]
