@@ -132,6 +132,8 @@ def load_library() -> ctypes.CDLL:
     lib.d3g_physics_bwd.restype = i32
     lib.d3g_mark_launch.argtypes = [i32, vp]
     lib.d3g_mark_launch.restype = i32
+    lib.d3g_view_mark_launch.argtypes = [i32, vp]
+    lib.d3g_view_mark_launch.restype = i32
     lib.d3g_error_string.argtypes = [i32]
     lib.d3g_error_string.restype = ctypes.c_char_p
     return lib

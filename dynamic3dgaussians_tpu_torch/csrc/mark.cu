@@ -11,6 +11,13 @@
 // phases apart. Bound: the launch itself, ~1-2 us a mark on the device.
 //
 // The phase index of d3g_mark_launch follows utils/logging.py::PHASES.
+//
+// View marks, a second empty kernel `d3g_view_mark<d3g_view::<view>>`, say
+// where a step's work on one group of views begins inside a phase (the ego
+// + static trainer: where its static views' own renders begin, and where
+// the backward reaches the ego view's render). Their name holds no
+// `d3g_mark<d3g_phase::`, so a reader of the phase marks does not see them.
+// The view index of d3g_view_mark_launch follows utils/logging.py::VIEWS.
 
 #include <cuda_runtime.h>
 
@@ -24,8 +31,16 @@ struct render_bwd {};
 struct update {};
 }  // namespace d3g_phase
 
+namespace d3g_view {
+struct static_rig {};
+struct ego {};
+}  // namespace d3g_view
+
 template <typename Phase>
 __global__ void d3g_mark() {}
+
+template <typename View>
+__global__ void d3g_view_mark() {}
 
 template <typename Phase>
 static void launch(cudaStream_t stream) {
@@ -42,6 +57,16 @@ extern "C" int d3g_mark_launch(int phase, void* stream) {
     case 4: launch<d3g_phase::image_loss_bwd>(s); break;
     case 5: launch<d3g_phase::render_bwd>(s); break;
     case 6: launch<d3g_phase::update>(s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int d3g_view_mark_launch(int view, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (view) {
+    case 0: d3g_view_mark<d3g_view::static_rig><<<1, 1, 0, s>>>(); break;
+    case 1: d3g_view_mark<d3g_view::ego><<<1, 1, 0, s>>>(); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -124,6 +124,22 @@ def stack_cameras(cams) -> Camera:
     return dataclasses.replace(first, **stacked)
 
 
+def stack_views(cams) -> Camera:
+    """Views of one image size as one Camera for `rasterize.render_views`:
+    each tensor field stacked with the views on two trailing axes (B, 1),
+    so that `projection.project` of (1, N) rows broadcasts to (B, N). The
+    views must share their static fields (height, width, near, far)."""
+    first = cams[0]
+    static = ("height", "width", "near", "far")
+    if any(getattr(c, k) != getattr(first, k) for c in cams for k in static):
+        raise ValueError("stack_views: the views differ in " + ", ".join(
+            static))
+    stacked = {f.name: torch.stack([getattr(c, f.name) for c in cams],
+                                   dim=-1)[..., None]
+               for f in dataclasses.fields(Camera) if f.name not in static}
+    return dataclasses.replace(first, **stacked)
+
+
 def select_camera(stacked: Camera, idx: torch.Tensor) -> Camera:
     """Camera `idx` of a `stack_cameras` batch, by a (1,) int64 index
     tensor on the cameras' device: a gather per field, with no host read

@@ -36,7 +36,7 @@ kernels schedule the same function, and are carried without effect. The
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, List, Optional
 
 import torch
 import torch.utils.checkpoint
@@ -218,6 +218,20 @@ def _gather_and_composite(h: int, w: int, proj: Projected,
             _untile(alpha[..., None], grid_h, grid_w, th, tw, h, w, 1)[..., 0])
 
 
+def _sorted(h: int, w: int, proj: Projected, all_chan: torch.Tensor,
+            op: torch.Tensor, bg: torch.Tensor, cfg: RasterConfig,
+            method: str, pair_cap: Optional[int], pair_stats: bool):
+    """`render_sorted` with `cfg`'s settings; `op` the opacity zeroed for
+    the invalid gaussians."""
+    return render_sorted(
+        h, w, proj, all_chan, op, bg, tile_h=cfg.tile_h, tile_w=cfg.tile_w,
+        chunk=cfg.chunk, max_tiles_per_gaussian=cfg.max_tiles_per_gaussian,
+        fused_key=cfg.fused_key, depth_mode=cfg.depth_mode,
+        exact_cull=cfg.exact_cull, enum_cap=cfg.emit_enum_cap,
+        use_kernel=method == "cuda", pair_cap=pair_cap,
+        pair_stats=pair_stats, variant=cfg.variant())
+
+
 def render(cam: Camera,
            means3d: torch.Tensor,
            colors: torch.Tensor,
@@ -330,14 +344,9 @@ def render(cam: Camera,
         n_dropped_capacity = bins.n_dropped_capacity
     else:
         op = torch.where(proj.valid, opacity, torch.zeros_like(opacity))
-        channels, depth, alpha, n_dropped_rect, stats = render_sorted(
-            cam.height, cam.width, proj, all_chan, op, full_bg,
-            tile_h=cfg.tile_h, tile_w=cfg.tile_w, chunk=cfg.chunk,
-            max_tiles_per_gaussian=cfg.max_tiles_per_gaussian,
-            fused_key=cfg.fused_key, depth_mode=cfg.depth_mode,
-            exact_cull=cfg.exact_cull, enum_cap=cfg.emit_enum_cap,
-            use_kernel=method == "cuda", pair_cap=pair_cap,
-            pair_stats=pair_stats, variant=cfg.variant())
+        channels, depth, alpha, n_dropped_rect, stats = _sorted(
+            cam.height, cam.width, proj, all_chan, op, full_bg, cfg, method,
+            pair_cap, pair_stats)
 
     return RenderOutput(
         rgb=channels[..., :n_rgb],
@@ -347,3 +356,69 @@ def render(cam: Camera,
         n_dropped_tile_overflow=n_tile_overflow,
         n_live_pairs=None if stats is None else stats[0],
         n_pair_overflow=None if stats is None else stats[1])
+
+
+def render_views(cams: Camera,
+                 means3d: torch.Tensor,
+                 colors: torch.Tensor,
+                 opacity: torch.Tensor,
+                 scales: torch.Tensor,
+                 rotations: torch.Tensor,
+                 *,
+                 extra_channels: Optional[torch.Tensor] = None,
+                 mean2d_probe_ndc: Optional[torch.Tensor] = None,
+                 method: str = "auto",
+                 config: Optional[RasterConfig] = None,
+                 pair_cap: Optional[int] = None,
+                 pair_stats: bool = False,
+                 before_view: Optional[Callable[[int], None]] = None
+                 ) -> List[RenderOutput]:
+    """`render` of each view of `cams` (`camera.stack_views`) on a
+    sorted-pair path: one projection of all the views, each of its
+    operations over the (B, N) rows at once, then each view's emission,
+    sort and composite, `before_view(b)` called before view b's. Each
+    view's output is `render`'s for its camera, with no background and the
+    inputs already activated on the cameras' device; the gradients of the
+    shared inputs sum over the views in one reduction (so they match a sum
+    of `render`s to rounding). A pair_cap is each view's record-table
+    capacity."""
+    dev = cams.device
+    if method == "auto":
+        method = "cuda" if dev.type == "cuda" else "torch"
+    if method not in ("torch", "cuda"):
+        raise ValueError(f"render_views runs the sorted-pair paths, got "
+                         f"{method!r}")
+    if method == "cuda" and dev.type != "cuda":
+        raise ValueError(f"method 'cuda' needs a CUDA device, got {dev}")
+    cfg = config or RasterConfig()
+    opacity = opacity.reshape(opacity.shape[0], -1)[:, 0]
+    all_chan = colors if extra_channels is None else torch.cat(
+        [colors, extra_channels], dim=-1)
+    n_rgb = colors.shape[-1]
+    bg = torch.zeros((all_chan.shape[-1],), dtype=torch.float32, device=dev)
+    proj = project(means3d[None], scales[None], rotations[None], cams,
+                   mean2d_probe_ndc=None if mean2d_probe_ndc is None
+                   else mean2d_probe_ndc[None])
+    op = torch.where(proj.valid, opacity[None], torch.zeros_like(proj.depth))
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    # unbind: one stack a field in the backward, not a scatter a view
+    rows = {f.name: getattr(proj, f.name).unbind(0)
+            for f in dataclasses.fields(Projected)}
+    ops = op.unbind(0)
+    outs = []
+    for b in range(len(ops)):
+        if before_view is not None:
+            before_view(b)
+        view = Projected(**{k: v[b] for k, v in rows.items()})
+        channels, depth, alpha, n_dropped_rect, stats = _sorted(
+            cams.height, cams.width, view, all_chan, ops[b], bg, cfg, method,
+            pair_cap, pair_stats)
+        outs.append(RenderOutput(
+            rgb=channels[..., :n_rgb],
+            extra=None if extra_channels is None else channels[..., n_rgb:],
+            depth=depth, alpha=alpha, radii=view.radius,
+            n_dropped_rect=n_dropped_rect, n_dropped_capacity=zero,
+            n_dropped_tile_overflow=zero,
+            n_live_pairs=None if stats is None else stats[0],
+            n_pair_overflow=None if stats is None else stats[1]))
+    return outs

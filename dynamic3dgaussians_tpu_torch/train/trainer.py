@@ -107,6 +107,18 @@ def resize_feature_map(feat: torch.Tensor, hw) -> torch.Tensor:
                          antialias=True)[0].permute(1, 2, 0)
 
 
+def cam_rows(params: Dict, cam_id):
+    """(cam_m, cam_c) rows of camera `cam_id`: an int, or a 0-d int64
+    tensor on the parameters' device (a window's gathered batch), read by
+    `index_select` without a host read."""
+    if isinstance(cam_id, torch.Tensor) and \
+            cam_id.device == params["cam_m"].device:
+        idx = cam_id.reshape(1).long()
+        return (params["cam_m"].index_select(0, idx)[0],
+                params["cam_c"].index_select(0, idx)[0])
+    return params["cam_m"][int(cam_id)], params["cam_c"][int(cam_id)]
+
+
 def compute_loss(params: Dict, probe: torch.Tensor, batch: Dict,
                  variables: Dict, *, is_initial: bool, cfg: TrainConfig,
                  rcfg: RasterConfig, pair_cap: Optional[int] = None,
@@ -142,16 +154,7 @@ def compute_loss(params: Dict, probe: torch.Tensor, batch: Dict,
                  pair_cap=pair_cap, pair_stats=pair_stats)
 
     phases.enter("image_loss")
-    cam_id = batch["cam_id"]
-    if isinstance(cam_id, torch.Tensor) and \
-            cam_id.device == params["cam_m"].device:
-        idx = cam_id.reshape(1).long()
-        cam_m = params["cam_m"].index_select(0, idx)[0]
-        cam_c = params["cam_c"].index_select(0, idx)[0]
-    else:
-        cam_m, cam_c = params["cam_m"][int(cam_id)], \
-            params["cam_c"][int(cam_id)]
-    im = L.apply_cam_correction(out.rgb, cam_m, cam_c)
+    im = L.apply_cam_correction(out.rgb, *cam_rows(params, batch["cam_id"]))
     losses = {"im": L.image_loss(im, batch["im"]),
               "seg": L.image_loss(out.extra[..., :3], batch["seg"])}
     if "gt_depth" in batch:
@@ -307,6 +310,30 @@ def stack_timestep_data(data_t: List[Dict]) -> Dict:
                      else torch.int64)
             out[key] = torch.as_tensor(vals, dtype=dtype, device=dev)
     return out
+
+
+def _next_mult(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def next_host_action(i: int, num_iters: int, cfg: TrainConfig, *,
+                     initial: bool, opacity_reset: bool = True,
+                     checkpoint_at: Optional[int] = None) -> int:
+    """The smallest step index >= i of a timestep of `num_iters` steps
+    after which the host acts, so that a window runs only the steps before
+    it: the timestep's last step, a report step, at t = 0 (`initial`) a
+    densify step and, with `opacity_reset`, an opacity reset, and a
+    checkpoint step (`checkpoint_at`) where one is given."""
+    a = [num_iters - 1, _next_mult(i, cfg.report_every)]
+    if initial and i <= cfg.densify_end:
+        d = _next_mult(max(i, cfg.densify_start), cfg.densify_every)
+        if d <= cfg.densify_end:
+            a.append(d)
+        if opacity_reset:
+            a.append(_next_mult(max(i, 1), cfg.opacity_reset_every))
+    if checkpoint_at is not None:
+        a.append(checkpoint_at)
+    return min(x for x in a if x >= i)
 
 
 def make_train_scan(cfg: TrainConfig, rcfg: RasterConfig, train_step=None,
@@ -593,25 +620,14 @@ def train(dataset, cfg: TrainConfig, pt_cld: np.ndarray,
                 rows.append(row)
             return np.asarray(rows, np.int64)
 
-        def next_mult(x, m):
-            return ((x + m - 1) // m) * m
-
-        def next_host_action(i):
-            """The smallest step index >= i after which the host acts."""
-            a = [num_iters - 1, next_mult(i, cfg.report_every)]
-            if is_initial and i <= cfg.densify_end:
-                d = next_mult(max(i, cfg.densify_start), cfg.densify_every)
-                if d <= cfg.densify_end:
-                    a.append(d)
-                a.append(next_mult(max(i, 1), cfg.opacity_reset_every))
-            if ckpt_mgr and checkpoint_every:
-                a.append(i + (-(global_step + 1)) % checkpoint_every)
-            return min(x for x in a if x >= i)
-
         i = resume_i + 1 if t == resume_t else 0
         while i < num_iters:
             k_step = cfg.raster.max_tiles_per_gaussian
-            if use_scan and next_host_action(i) - i + 1 >= scan_w:
+            ckpt_at = (i + (-(global_step + 1)) % checkpoint_every
+                       if ckpt_mgr and checkpoint_every else None)
+            if use_scan and next_host_action(
+                    i, num_iters, cfg, initial=is_initial,
+                    checkpoint_at=ckpt_at) - i + 1 >= scan_w:
                 sel = pick_cams(scan_w)
                 sel = torch.as_tensor(sel[:, 0] if k_cams == 1 else sel,
                                       device=dev)

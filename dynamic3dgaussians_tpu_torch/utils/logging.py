@@ -11,7 +11,10 @@ opens a host span (a `torch.profiler.record_function` range, on the
 profiler's clock), `mark` marks where a phase of the train step begins on
 the device's timeline (a marker kernel, `csrc/mark.cu`, that a CUDA graph
 captures and replays), and `phases` strings a step's phases together, span
-and mark each. With tracing off each is a flag test and nothing more.
+and mark each. `view_mark` marks where a step's work on a group of views
+begins inside a phase (`VIEWS`: a second marker kernel, which no reader of
+the phase marks sees). With tracing off each is a flag test and nothing
+more.
 `start_profiler_trace` / `stop_profiler_trace` wrap `torch.profiler` and
 write what it saw, spans and marks included, as a Chrome trace.
 """
@@ -145,6 +148,11 @@ def stop_profiler_trace(prof) -> None:
 PHASES = ("render", "image_loss", "physics", "physics_bwd", "image_loss_bwd",
           "render_bwd", "update")
 
+# The groups of views a step can mark (`view_mark`; the view index of
+# `csrc/mark.cu`'s d3g_view_mark_launch): the ego + static trainer's static
+# rig, and its ego view.
+VIEWS = ("static_rig", "ego")
+
 _tracing = False
 _NO_SPAN = contextlib.nullcontext()
 
@@ -180,12 +188,49 @@ def mark(phase: str, device) -> None:
         with torch.profiler.record_function(f"mark.{phase}"):
             pass
         return
+    _launch_marker("d3g_mark_launch", index, dev, f"mark {phase}")
+
+
+def view_mark(view: str, device) -> None:
+    """With tracing on, where the work on `view` (one of VIEWS) begins on
+    `device`'s timeline: a zero-length host span `view_mark.<view>` and, on
+    a CUDA device, the view's marker kernel on the current stream (a CUDA
+    graph that captures it replays it)."""
+    if not _tracing:
+        return
+    index = VIEWS.index(view)
+    with torch.profiler.record_function(f"view_mark.{view}"):
+        pass
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        _launch_marker("d3g_view_mark_launch", index, dev, f"view mark {view}")
+
+
+def _launch_marker(entry: str, index: int, dev: torch.device,
+                   what: str) -> None:
+    """Launch marker kernel `index` of `csrc/mark.cu`'s entry point `entry`
+    on `dev`'s current stream."""
     from dynamic3dgaussians_tpu_torch import _build
     lib = _build.load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _build.check(lib, lib.d3g_mark_launch(index, stream),
-                     f"mark {phase}")
+        _build.check(lib, getattr(lib, entry)(index, stream), what)
+
+
+def _on_first_grad(tensors, fn) -> None:
+    """Call `fn()` once, from autograd hooks on `tensors`, when the
+    backward reaches the first of their nodes; the hooks return None, so no
+    gradient changes."""
+    fired = []
+
+    def hook(_grad):
+        if not fired:
+            fired.append(True)
+            fn()
+
+    for t in tensors:
+        if t is not None and t.requires_grad:
+            t.register_hook(hook)
 
 
 class Phases:
@@ -195,7 +240,9 @@ class Phases:
     hooks on `tensors`, when the backward reaches the first of their nodes;
     the hooks return None, so no gradient changes. `close()` ends the last
     span. A span entered from a hook opens on the autograd thread and may
-    end on another, which `record_function` allows."""
+    end on another, which `record_function` allows. `view(name)` and
+    `view_on(tensors, name)` mark where the work on a group of views begins
+    (`view_mark`), now or from hooks, inside the open phase."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -209,16 +256,14 @@ class Phases:
 
     def enter_on(self, tensors: Iterable[Optional[torch.Tensor]],
                  name: str) -> None:
-        fired = []
+        _on_first_grad(tensors, lambda: self.enter(name))
 
-        def hook(_grad):
-            if not fired:
-                fired.append(True)
-                self.enter(name)
+    def view(self, name: str) -> None:
+        view_mark(name, self.device)
 
-        for t in tensors:
-            if t is not None and t.requires_grad:
-                t.register_hook(hook)
+    def view_on(self, tensors: Iterable[Optional[torch.Tensor]],
+                name: str) -> None:
+        _on_first_grad(tensors, lambda: self.view(name))
 
     def close(self) -> None:
         if self._span is not None:
@@ -233,6 +278,12 @@ class _NoPhases:
         pass
 
     def enter_on(self, tensors, name: str) -> None:
+        pass
+
+    def view(self, name: str) -> None:
+        pass
+
+    def view_on(self, tensors, name: str) -> None:
         pass
 
     def close(self) -> None:

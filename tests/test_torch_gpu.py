@@ -635,10 +635,10 @@ def test_cuda_physics_counts_its_runs_in_a_graph(cuda_device):
         assert launches.runs(fn) == 4
 
 
-def _p1_world(dev):
+def _p1_world(dev, num_cams=3):
     """A t = 1 state of a small synthetic scene on the card (the port's own
     t = 0 -> t = 1 transition: kNN graph, foreground prefix, extrapolation)
-    and its 3 cameras."""
+    and its `num_cams` cameras."""
     from dynamic3dgaussians_tpu_torch.data import synthetic
     from dynamic3dgaussians_tpu_torch.models import gaussians as G
     from dynamic3dgaussians_tpu_torch.train import optim
@@ -646,8 +646,8 @@ def _p1_world(dev):
     from dynamic3dgaussians_tpu_torch.train.config import (RasterSettings,
                                                            TrainConfig)
     scene = synthetic.make_gt_scene(n_fg=50, n_bg=90, seed=3)
-    data, w2c, _ = synthetic.make_dataset(scene, 2, num_cams=3, w=64, h=48,
-                                          f=55.0, device=dev)
+    data, w2c, _ = synthetic.make_dataset(scene, 2, num_cams=num_cams, w=64,
+                                          h=48, f=55.0, device=dev)
     pt = synthetic.init_point_cloud(scene, noise=0.05)
     cfg = TrainConfig(num_timesteps=2, capacity=512, num_knn=8,
                       raster=RasterSettings(chunk=64, max_per_tile=512,
@@ -700,3 +700,126 @@ def test_cuda_train_step_and_window_run_p1(cuda_device):
         assert torch.equal(p1[key], p2[key]), key
         assert torch.equal(o1.mu[key], o2.mu[key]), key
         assert torch.equal(o1.nu[key], o2.nu[key]), key
+
+
+def _ego_world(dev):
+    """The t = 1 state of `_p1_world` with 5 cameras as the ego + static
+    trainer's: camera 0 the ego frame (turned by -90 degrees, the bottom
+    right triangle masked, colour row 4), 1-4 the static rig (flat depth
+    ground truth); the ego step on that rig, its window, the ego frames'
+    stack."""
+    from dynamic3dgaussians_tpu_torch.train import ego_trainer as TE
+    from dynamic3dgaussians_tpu_torch.train import trainer as T
+    state, frames, cfg, lrs = _p1_world(dev, num_cams=5)
+    h, w = frames[0]["im"].shape[:2]
+    y = (torch.arange(w, device=dev, dtype=torch.float32) + 0.5) / w
+    x = (torch.arange(h, device=dev, dtype=torch.float32) + 0.5) / h
+    ego = [dict(camera=frames[0]["camera"], cam_id=4,
+                im=torch.rot90(frames[0]["im"], k=-1, dims=(0, 1)),
+                mask=((y[:, None] + x[None, :]) <= 1.5).float())]
+    rig = TE.StaticRig([dict(camera=f["camera"], im=f["im"], cam_id=f["cam_id"],
+                             gt_depth=torch.full((h, w), 4.0, device=dev))
+                        for f in frames[1:]])
+    rcfg = T.raster_config(cfg)
+    step = TE.make_ego_step(cfg, rcfg, rot90_ego=True, rig=rig)
+    scan = T.make_train_scan(cfg, rcfg, step)
+    return state, ego, T.stack_timestep_data(ego), step, scan, lrs
+
+
+EGO_STEPS = 6
+
+
+def test_cuda_ego_window_replays_its_eager_steps(cuda_device):
+    """The ego + static step (one ego and four static renders) captured in
+    a CUDA graph with no host read (a host read inside the capture raises)
+    and replayed: a window of EGO_STEPS steps gives bitwise the state and
+    the losses of the same steps run eagerly, and a second window from the
+    same start, all replays, the same again."""
+    state, ego, stack, step, scan, lrs = _ego_world(cuda_device)
+    eager, losses = state, []
+    for _ in range(EGO_STEPS):
+        *eager, m = step(*eager, ego[0], lrs, False)
+        losses.append(m["loss"])
+    sel = torch.zeros(EGO_STEPS, dtype=torch.int64)
+    for n in range(2):
+        p, o, v, _ = scan(*state, stack, sel, lrs, False)
+        torch.cuda.synchronize()
+        st = scan.window.stats
+        assert (st["captures"], st["replays"], st["redos"]) == \
+            (1, (EGO_STEPS - 2) + n * EGO_STEPS, 0)
+        assert torch.equal(scan.window.last_steps["loss"],
+                           torch.stack(losses))
+        for key in p:
+            assert torch.equal(p[key], eager[0][key]), key
+            assert torch.equal(o.mu[key], eager[1].mu[key]), key
+            assert torch.equal(o.nu[key], eager[1].nu[key]), key
+        for key in ("means2D_gradient_accum", "denom", "max_2D_radius"):
+            assert torch.equal(v[key], eager[2][key]), key
+    assert float(losses[0]) > 0 and np.isfinite(float(losses[-1]))
+
+
+def test_cuda_ego_window_runs_each_kernel_once_a_render(cuda_device):
+    """In a replayed ego window the device run counters see K1, K2 and E1
+    five times a step (the ego render and four static ones) and P1's
+    forward and backward once a step; the host counts see no launch."""
+    state, ego, stack, _, scan, lrs = _ego_world(cuda_device)
+    sel = torch.zeros(EGO_STEPS, dtype=torch.int64)
+    scan(*state, stack, sel, lrs, False)                  # captures
+    per_render = (K1.composite_tiles, K2.composite_tiles_bwd,
+                  E1.emit_pairs_cuda)
+    per_step = (P1.edge_losses_cuda, P1.edge_grads_cuda)
+    for fn in per_render + per_step:
+        launches.zero(fn)
+    hosts = [fn.launches for fn in per_render + per_step]
+    scan(*state, stack, sel, lrs, False)                  # replays only
+    torch.cuda.synchronize()
+    assert scan.window.stats["captures"] == 1
+    for fn in per_render:
+        assert launches.runs(fn) == 5 * EGO_STEPS, fn.__name__
+    for fn in per_step:
+        assert launches.runs(fn) == EGO_STEPS, fn.__name__
+    assert [fn.launches for fn in per_render + per_step] == hosts
+
+
+def test_cuda_train_ego_in_windows_is_its_eager_run(cuda_device, monkeypatch):
+    """`train_ego` with steps_per_call 4 on the card, its windows a
+    captured CUDA graph of the ego step replayed, over a t = 0 and a t = 1
+    timestep: bitwise the parameters of the same run one step a call."""
+    from dynamic3dgaussians_tpu_torch.data import synthetic
+    from dynamic3dgaussians_tpu_torch.train import ego_trainer as TE
+    from dynamic3dgaussians_tpu_torch.train.config import (RasterSettings,
+                                                           TrainConfig)
+    scene = synthetic.make_gt_scene(n_fg=50, n_bg=90, seed=3)
+    data, w2c, _ = synthetic.make_dataset(scene, 2, num_cams=5, w=64, h=48,
+                                          f=55.0, device=cuda_device)
+    pt = synthetic.init_point_cloud(scene, noise=0.05)
+    ego = [[dict(camera=fr[0]["camera"], cam_id=fr[0]["cam_id"],
+                 im=torch.rot90(fr[0]["im"], k=-1, dims=(0, 1)))]
+           for fr in data]
+    stat = [[dict(camera=f["camera"], im=f["im"], cam_id=f["cam_id"],
+                  gt_depth=torch.full(f["im"].shape[:2], 4.0,
+                                      device=cuda_device))
+             for f in fr[1:]] for fr in data]
+    scans = []
+    make_scan = TE.make_train_scan
+
+    def kept(*a, **kw):
+        scans.append(make_scan(*a, **kw))
+        return scans[-1]
+    monkeypatch.setattr(TE, "make_train_scan", kept)
+    runs = []
+    for steps_per_call in (1, 4):
+        cfg = TrainConfig(
+            num_timesteps=2, iters_first_timestep=9, iters_per_timestep=13,
+            capacity=512, num_knn=8, densify_start=1000, densify_end=0,
+            report_every=6, steps_per_call=steps_per_call,
+            raster=RasterSettings(chunk=64, max_per_tile=512,
+                                  max_tiles_per_gaussian=64,
+                                  pairs_per_gaussian=16))
+        runs.append(TE.train_ego(ego, stat, cfg, pt, w2c, rot90_ego=True,
+                                 device=cuda_device)[1])
+    (scan,) = scans
+    assert scan.window.stats["captures"] == 2
+    assert scan.window.stats["replays"] > 0
+    for key in runs[0]:
+        assert torch.equal(runs[0][key], runs[1][key]), key
