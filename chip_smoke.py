@@ -247,6 +247,23 @@ def take_physics():
     return got
 
 
+def unsort_kernel():
+    """U1's wrapper: it counts its launches and, on the device, its runs,
+    as K1, K2, E1 and P1 do."""
+    from dynamic3dgaussians_tpu_torch.ops.cuda.unsort import unsort_sum_cuda
+    return unsort_sum_cuda
+
+
+def take_unsort():
+    """U1's host launches and device runs since the last call, then set to
+    0 (a device sync)."""
+    from dynamic3dgaussians_tpu_torch.ops.cuda import launches
+    fn = unsort_kernel()
+    got = dict(launches=fn.launches, runs=launches.runs(fn))
+    launches.zero(fn)
+    return got
+
+
 def read_variants():
     """Per K1 / K2 instantiation since `zero_launches`: the runs each
     instantiation counted on the device (its own template switches pick
@@ -1087,6 +1104,115 @@ def kn_check(t):
     return out
 
 
+# U1 on the bench training's K = 64 table: the channels of CV 8 (RGB + 3
+# seg, 16 rows) and CV 40 (RGB + 32 features + 3 seg, 48 rows), the static
+# form at a capacity an eighth past the live count, and the replays timed
+UNSORT_CHANS = {"cv8": 6, "cv40": 38}
+UNSORT_REPS = 20
+
+
+def unsort_check(t):
+    """U1 (`unsort_sum_cuda`) against its plain version (`unsort_sum_plain`)
+    and the per-slot buffer's sum over K (`slot_sum`), on table `t`'s pairs
+    sorted into the record table at each of UNSORT_CHANS and K2's gradient
+    columns of a drawn upstream gradient: bitwise the plain version, a
+    second launch bitwise the first, the static form bitwise the eager
+    one, and `slot_sum` within 2 (K - 1) 2^-24 sum |terms|. Times, each
+    replayed UNSORT_REPS times from one CUDA graph: U1 (`ms`), the plain
+    version, and `slot_sum` with the ones and pad rows zeroed (what the
+    backward ran before U1); the bound of the bytes the sum needs (each
+    live pair's gradient rows and slot read once, the (R, N) result
+    written once); the allocator's peak of one call of U1 and of
+    `slot_sum`, above what was allocated before."""
+    import torch
+    from dynamic3dgaussians_tpu_torch.ops import sorted_raster as SR
+    from dynamic3dgaussians_tpu_torch.ops.cuda import raster_bwd, raster_fwd
+    from dynamic3dgaussians_tpu_torch.ops.cuda import unsort as U
+    cam, proj, op, k = t["cam"], t["proj"], t["op"], t["k"]
+    n = proj.depth.shape[0]
+    n_slots = k * n
+    grid_w = -(-cam.width // TILE)
+    num_tiles = -(-cam.height // TILE) * grid_w
+    geo = dict(num_tiles=num_tiles, grid_w=grid_w, tile_h=TILE, tile_w=TILE,
+               chunk=CHUNK)
+    out = {}
+    with torch.no_grad():
+        ekw = dict(tile_h=TILE, tile_w=TILE, max_tiles_per_gaussian=k,
+                   exact_cull=True, enum_cap=0)
+        pairs = SR.emit(cam.height, cam.width, proj, op, **ekw)
+        n_live = pairs.tile.shape[0]
+        cap = n_live + n_live // 8
+        static_pairs = SR.emit(cam.height, cam.width, proj, op, **ekw,
+                               pair_cap=cap)
+        for name, n_chan in UNSORT_CHANS.items():
+            gen = torch.Generator(device=op.device).manual_seed(n_chan)
+            chans = torch.rand((n, n_chan), generator=gen, device=op.device)
+            table = SR.record_columns(proj, chans, op)
+            kw = dict(n_chan=n_chan, bits_z=SR.depth_key_bits(num_tiles),
+                      depth_mode="quantized", grid_w=grid_w, tile_h=TILE,
+                      tile_w=TILE, num_tiles=num_tiles, chunk=CHUNK)
+            d_raw = None
+            sums = {}
+            for form, (rec_t, starts, counts, slot) in (
+                    ("eager", SR.prepare_records(pairs, table, **kw)),
+                    ("static", SR.prepare_records_static(
+                        static_pairs, table, pair_cap=cap, **kw)[:4])):
+                raw, log_t, n_active = raster_fwd.composite_tiles(
+                    rec_t, starts, counts, **geo)
+                if d_raw is None:
+                    d_raw = torch.randn(raw.shape, generator=gen,
+                                        device=op.device)
+                d_out = raster_bwd.composite_tiles_bwd(
+                    rec_t, starts, counts, n_active.reshape(-1), log_t,
+                    d_raw, **geo)
+                sums[form] = (slot, d_out[:, :slot.shape[0]])
+            slot, d_pairs = sums["eager"]
+            rows = d_pairs.shape[0]
+            n_rows = SR.GEOM_ROWS + n_chan + 1
+
+            def u1(form="eager"):
+                return U.unsort_sum_cuda(*sums[form], n_slots, n, n_rows)
+
+            def plain():
+                return U.unsort_sum_plain(slot, d_pairs, n_slots, n, n_rows)
+
+            def per_slot():
+                d = SR.slot_sum(slot, d_pairs, n_slots, n)
+                d[n_rows:] = 0.0
+                return d
+            got, again, static = u1(), u1(), u1("static")
+            want = plain()
+            full = per_slot()
+            terms = SR.slot_sum(slot, d_pairs.abs(), n_slots, n)
+            err = (got - full).abs()
+            rec = dict(rows=rows, n_rows=n_rows, n_live=n_live, pair_cap=cap,
+                       bitwise_plain=torch.equal(got, want),
+                       repeat_bitwise=torch.equal(got, again),
+                       static_bitwise_eager=torch.equal(static, got),
+                       slot_sum_max_abs_err=float(err.max()),
+                       slot_sum_within=bool(
+                           (err <= 2 * (k - 1) * 2.0 ** -24 * terms).all()))
+            del want, full, terms, err, static, again
+            for what, fn in (("u1", u1), ("slot_sum", per_slot)):
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                res = fn()
+                torch.cuda.synchronize()
+                rec[f"peak_{what}"] = (torch.cuda.max_memory_allocated()
+                                       - base)
+                del res
+            rec["ms"] = graph_ms(u1, UNSORT_REPS)
+            rec["plain_ms"] = graph_ms(plain, UNSORT_REPS)
+            rec["slot_sum_ms"] = graph_ms(per_slot, UNSORT_REPS)
+            rec.update(**bound(n_live * n_rows,
+                               n_live * (n_rows * 4 + 8) + rows * n * 4))
+            out[name] = rec
+            del sums, got, slot, d_pairs, table
+            torch.cuda.empty_cache()
+    return out
+
+
 def stripe_pairs_equal(t, scene):
     """`tile_shard.stripe_table`'s live pairs of each of the EMIT_STRIPES
     stripes (E1 inside, stripe-local keys) against the plain version's
@@ -1117,7 +1243,8 @@ def stripe_pairs_equal(t, scene):
 def phase_emit(scene, device, smi):
     """E1 against its plain version on every table of `emit_tables`; on
     the bench training's table the allocator's peak from the emission to
-    the sorted table."""
+    the sorted table, and U1 against its plain version and `slot_sum`
+    (`unsort_check`)."""
     import torch
     recs = {}
     for name, t in emit_tables(scene, device).items():
@@ -1126,6 +1253,7 @@ def phase_emit(scene, device, smi):
             rec["stripe_table_pairs_equal"] = stripe_pairs_equal(t, scene)
         if name == "train_k64":
             rec["kn_check"] = kn_check(t)
+            rec["unsort"] = unsort_check(t)
         emit(rec)
         recs[name] = rec
         del t
@@ -1152,6 +1280,10 @@ def phase_emit(scene, device, smi):
             bad.append(f"{name} more than E1 between projection and sort")
         if kn and not kn["sink_sum_bitwise"]:
             bad.append(f"{name} sink column sum")
+        for cv, u in r.get("unsort", {}).items():
+            bad += [f"{name} U1 {cv} {gate}" for gate in (
+                "bitwise_plain", "repeat_bitwise", "static_bitwise_eager",
+                "slot_sum_within") if not u[gate]]
     if bad:
         raise AssertionError(f"emit_vs_plain failed: {bad}")
     return recs
@@ -5723,6 +5855,7 @@ def main() -> int:
             k2[table, rec["cv"]] = rec
     scene = bench_scene()
     e1 = phase_emit(scene, device, smi)
+    u1 = e1["train_k64"]["unsort"]
     p1 = phase_physics(scene, device, smi)
     k3 = phase_k3(device, smi)
     phase_oracle(device)
@@ -5732,29 +5865,39 @@ def main() -> int:
     # P1's launches and runs by path: the paths that train at t > 0 (the
     # parallel ranks run in processes of their own, uncounted here)
     take_physics()
-    p1_paths = {}
+    take_unsort()
+    p1_paths, u1_paths = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         train_rec = phase_train_main_path(scene, device, smi, tmp)
         p1_paths["train"] = take_physics()
+        u1_paths["train"] = take_unsort()
         phase_ckpt_main_path(train_rec, device, smi)
         p1_paths["ckpt"] = take_physics()
+        u1_paths["ckpt"] = take_unsort()
         eval_rec = phase_evaluate_main_path(train_rec, device, smi)
         track_rec = phase_tracking(train_rec, device, smi)
         viewer_rec = phase_view_main_path(train_rec, device, smi)
         feature_rec = phase_feature_main_path(scene, device, smi, tmp)
+        u1_paths["feature"] = take_unsort()
     take_physics()
     ego_rec = phase_ego_main_path(scene, device, smi)
     p1_paths["ego"] = take_physics()
+    u1_paths["ego"] = take_unsort()
     with tempfile.TemporaryDirectory() as tmp:
         motion_rec = phase_motion_main_path(scene, device, smi, tmp)
+    u1_paths["motion"] = take_unsort()
     par_rec = phase_parallel_main_path(scene, device, smi)
+    u1_paths["parallel"] = take_unsort()
     take_physics()
     longrun_rec = phase_longrun_main_path(device, smi)
     p1_paths["longrun"] = take_physics()
+    u1_paths["longrun"] = take_unsort()
     window_rec = phase_window_main_path(scene, device, smi)
     p1_paths["window"] = take_physics()
+    u1_paths["window"] = take_unsort()
     variants_rec = phase_variants_main_path(scene, device, smi)
     p1_paths["variants"] = take_physics()
+    u1_paths["variants"] = take_unsort()
     phase_tiled(scene, device, smi)
     phase_knn_approx(scene, device, smi)
     probe_rec = phase_probe_main_path(k3, device, smi)
@@ -5901,7 +6044,26 @@ def main() -> int:
              plain_ms=p1["plain_ms"], eager_ms=p1["eager_ms"],
              plain_eager_ms=p1["plain_eager_ms"], bound_ms=p1["bound_ms"],
              bound_by=p1["bound_by"], library_ms=None, n_dst=p1["n_dst"],
-             edges=p1["edges"], k=p1["k"])]
+             edges=p1["edges"], k=p1["k"]),
+        # U1 on the bench training's K = 64 table at CV 8 (CV 40 beside):
+        # its two launches replayed from a CUDA graph, the plain version
+        # and the per-slot buffer it replaced (`slot_sum_ms`) timed alike;
+        # launches and runs per path (the parallel ranks' own processes
+        # uncounted); bitwise the plain version
+        dict(name="unsort_sum", route="cuda",
+             source="dynamic3dgaussians_tpu_torch/csrc/unsort.cu",
+             replaces="dynamic3dgaussians_tpu/ops/sorted_raster.py:327 "
+                      "composite_bwd's unsort and K sum (XLA)",
+             launches=u1_paths["train"]["launches"],
+             launches_by_path={p: c["launches"] for p, c in u1_paths.items()},
+             runs_by_path={p: c["runs"] for p, c in u1_paths.items()},
+             max_abs_err=0.0, **{key: u1["cv8"][key] for key in (
+                 "ms", "plain_ms", "slot_sum_ms", "bound_ms", "bound_by",
+                 "bytes", "peak_u1", "peak_slot_sum", "n_live")},
+             library_ms=None, k_slots=EMIT_TRAIN_K,
+             cv40={key: u1["cv40"][key] for key in (
+                 "ms", "plain_ms", "slot_sum_ms", "bound_ms", "bytes",
+                 "peak_u1", "peak_slot_sum")})]
         + variant_lines})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -130,6 +130,8 @@ def load_library() -> ctypes.CDLL:
     lib.d3g_physics_fwd.restype = i32
     lib.d3g_physics_bwd.argtypes = physics_common + [i32] + [vp] * 12
     lib.d3g_physics_bwd.restype = i32
+    lib.d3g_unsort_sum.argtypes = [vp, vp, i64] + [i32] * 5 + [vp] * 6
+    lib.d3g_unsort_sum.restype = i32
     lib.d3g_mark_launch.argtypes = [i32, vp]
     lib.d3g_mark_launch.restype = i32
     lib.d3g_view_mark_launch.argtypes = [i32, vp]

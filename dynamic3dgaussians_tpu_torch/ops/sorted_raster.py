@@ -27,14 +27,20 @@ the result:
     Live pairs have depth > near > 0, where float bits order like floats.
   * The backward reduces the per-pair gradient rows to gaussians the way
     the reference's unsort + K-axis sum does, deterministically: each live
-    pair keeps its emission slot (k-major, slot = k * N + gaussian), its
-    rows are stored at that slot of a zeroed per-slot buffer (a plain
-    indexed store: live slots are unique; the static form's unused columns
-    all go to the sink column K * N, which is dropped), and the buffer's
-    first K * N columns are summed over K (`slot_sum`). No index_add_: on CUDA it sums with atomics in an order
-    that changes from run to run. The depth row's gradient passes to the
-    view depth as identity in every depth mode (as the reference does for
-    the quantized key depth); the row of ones takes none.
+    pair keeps its emission slot (k-major, slot = k * N + gaussian), and
+    each gaussian's rows are summed over its live pairs in ascending k,
+    from +0.0, adding only live terms (`ops/cuda/unsort.py`: on the card
+    the kernel U1, `unsort_sum_cuda`, through an int map from slot to
+    column and a pair-major copy of the gradient columns; its plain
+    version `unsort_sum_plain`, bitwise the same). The static form's
+    unused columns carry the sink slot K * N and add nothing; a
+    gaussian's live slots may be any subset of its K (a tile stripe's).
+    No float (rows, K * N) buffer and no float atomics, so a replayed
+    window repeats bitwise. `slot_sum`, the zeroed per-slot buffer
+    summed over K, stays as the yardstick the tests hold both to. The
+    depth row's gradient passes to the view depth as identity in every
+    depth mode (as the reference does for the quantized key depth); the
+    row of ones and the pad rows take none.
 
 The sorts are stable: pairs with equal keys keep their emission order (one
 of the orders the reference's unstable sorts may give) in both forms.
@@ -52,7 +58,7 @@ and in the kernels:
     rows rounded to f16; the depth and ones rows as they are. In the
     backward the gradient rows of x, y, the conic, opacity, depth and the
     channels are rounded as `pack2_bf16` rounds (`round_bf16`) before the
-    per-slot store and the K sum.
+    sum over K.
   * power_impl="mxu_fused": rows 6 and 7 of the table hold log2 opacity
     and its clamp (`fused_opacity_rows`, from the opacity row after the
     f16 rounding), for K1's FUSED variant; the backward runs K2's default
@@ -73,6 +79,8 @@ from dynamic3dgaussians_tpu_torch.ops.cuda.raster_bwd import (
     composite_tiles_bwd, composite_tiles_bwd_torch)
 from dynamic3dgaussians_tpu_torch.ops.cuda.raster_fwd import (
     GEOM_ROWS, LOG2_ALPHA_MAX, composite_tiles, composite_tiles_torch)
+from dynamic3dgaussians_tpu_torch.ops.cuda.unsort import (unsort_sum_cuda,
+                                                          unsort_sum_plain)
 from dynamic3dgaussians_tpu_torch.ops.projection import Projected
 
 DEPTH_MODES = ("quantized", "exact", "total")
@@ -342,7 +350,9 @@ def slot_sum(slot: torch.Tensor, d_pairs: torch.Tensor, n_slots: int,
              n_gauss: int) -> torch.Tensor:
     """(rows, N): the columns of d_pairs (rows, M) stored at their emission
     slots (M,) of a zeroed per-slot buffer and summed over K (slot = k * N
-    + gaussian; slot n_slots = K * N is the sink, dropped)."""
+    + gaussian; slot n_slots = K * N is the sink, dropped). The yardstick
+    of `ops/cuda/unsort.py`'s sum, for tests and `chip_smoke.py`: the
+    backward runs no (rows, K * N) buffer."""
     rows = d_pairs.shape[0]
     per_slot = torch.zeros((rows, n_slots + SINK_PAD), dtype=d_pairs.dtype,
                            device=d_pairs.device)
@@ -422,7 +432,8 @@ def sorted_records(h: int, w: int, proj: Projected, colors: torch.Tensor,
 
 
 class _SortComposite(torch.autograd.Function):
-    """table -> sort -> K1 forward; K2 -> pair-to-gaussian sum backward.
+    """table -> sort -> K1 forward; K2 -> pair-to-gaussian sum (U1)
+    backward.
 
     forward(table (8 + CV, N), pairs (`binning.Pairs`, at pair_cap
     columns when it is given), spec, pair_cap=None, pair_stats=False)
@@ -476,8 +487,10 @@ class _SortComposite(torch.autograd.Function):
             for rows in (slice(0, 6),
                          slice(GEOM_ROWS, GEOM_ROWS + n_chan + 1)):
                 d_pairs[rows] = round_bf16(d_pairs[rows])
-        d_table = slot_sum(slot, d_pairs, ctx.n_slots, ctx.n_gauss)
-        d_table[GEOM_ROWS + n_chan + 1:] = 0.0     # ones and pad rows
+        # the ones and pad rows, past the depth row, take no gradient
+        unsort = unsort_sum_cuda if use_kernel else unsort_sum_plain
+        d_table = unsort(slot, d_pairs, ctx.n_slots, ctx.n_gauss,
+                         GEOM_ROWS + n_chan + 1)
         return d_table, None, None, None, None
 
 

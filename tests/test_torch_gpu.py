@@ -34,7 +34,9 @@ every capacity slot, the chain rule per edge against autograd's over K),
 and against its numpy model (`torch_physics_model.py`, the CPU's rsqrt
 and no FMA) the same; rows past the plan's prefix and masked rows exactly
 0; a replayed graph of it, and a replayed training window through it,
-bitwise repeatable.
+bitwise repeatable. The pair-to-gaussian sum U1 must equal its plain
+version bitwise (the same adds in the same order), repeat bitwise, and
+count one device run a render in a replayed window.
 """
 
 import dataclasses
@@ -55,6 +57,7 @@ from dynamic3dgaussians_tpu_torch.ops.cuda import physics as P1
 from dynamic3dgaussians_tpu_torch.ops.cuda import raster_bwd as K2
 from dynamic3dgaussians_tpu_torch.ops.cuda import raster_fwd as K1
 from dynamic3dgaussians_tpu_torch.ops.cuda import sol_probe as K3
+from dynamic3dgaussians_tpu_torch.ops.cuda import unsort as U
 from dynamic3dgaussians_tpu_torch.train import losses as L
 from test_torch_cases import (CASES, GRID_H, GRID_W, LOG2E, TH, TW,
                               kernel_kw, record_table)
@@ -533,6 +536,133 @@ def test_cuda_render_emits_through_e1(cuda_device):
     assert E1.emit_pairs_cuda.launches == before + 1
 
 
+# ---------------------------------------------------------------- U1
+
+# the table's channels: CV 8 (16 rows, RGB + 3 seg) and CV 40 (48 rows,
+# RGB + 32 features + 3 seg)
+U1_CHANS = {16: 6, 48: 38}
+U1_FORMS = ("eager", "static", "stripe")
+U1_K = 64
+
+
+def _u1_case(dev, rows, form, seed=11):
+    """(slot, d_pairs, n_slots, n, n_rows) of a rendered scene on the card:
+    E1's pairs sorted into the record table (eagerly, at a capacity past
+    the live count, or one of two `tile_shard.stripe_table` stripes, whose
+    gaussians keep a subset of their slots), K1 forward and K2's gradient
+    columns of a drawn upstream gradient (row stride NE_pad)."""
+    from dynamic3dgaussians_tpu_torch.ops import sorted_raster as SR
+    from dynamic3dgaussians_tpu_torch.parallel.tile_shard import stripe_table
+    n_chan = U1_CHANS[rows]
+    arrays, _ = _scene(3000, seed=seed)
+    means, _, opac, scales, quats = [torch.as_tensor(a, device=dev)
+                                     for a in arrays]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    chans = torch.rand((means.shape[0], n_chan), generator=gen, device=dev)
+    w2c = np.eye(4)
+    w2c[2, 3] = 3.0
+    cam = tcam.make_camera(320, 224, [[200.0, 0, 160], [0, 200.0, 112],
+                                      [0, 0, 1]], w2c, device=dev)
+    th = tw = 16
+    grid_w = 320 // tw
+    if form == "stripe":
+        cfg = trast.RasterConfig(max_tiles_per_gaussian=U1_K)
+        table, pairs, spec = stripe_table(cam, cfg, 2, 1, means, chans, opac,
+                                          scales, quats)
+        num_tiles = spec[1]
+    else:
+        proj = tproj.project(means, scales, quats, cam)
+        op = torch.where(proj.valid, opac, torch.zeros_like(opac))
+        table = SR.record_columns(proj, chans, op)
+        num_tiles = grid_w * 224 // th
+
+        def emit(pair_cap=None):
+            return SR.emit(224, 320, proj, op, tile_h=th, tile_w=tw,
+                           max_tiles_per_gaussian=U1_K, exact_cull=True,
+                           enum_cap=0, pair_cap=pair_cap)
+        pairs = emit()
+    kw = dict(n_chan=n_chan, num_tiles=num_tiles, chunk=128,
+              bits_z=SR.depth_key_bits(num_tiles), depth_mode="quantized",
+              grid_w=grid_w, tile_h=th, tile_w=tw)
+    table = table.detach()
+    if form == "static":
+        cap = pairs.tile.shape[0] + 1000
+        rec_t, starts, counts, slot, _ = SR.prepare_records_static(
+            emit(cap), table, pair_cap=cap, **kw)
+    else:
+        rec_t, starts, counts, slot = SR.prepare_records(pairs, table, **kw)
+    geo = dict(num_tiles=num_tiles, grid_w=grid_w, tile_h=th, tile_w=tw,
+               chunk=128)
+    raw, log_t, n_active = K1.composite_tiles(rec_t, starts, counts, **geo)
+    d_raw = torch.randn(raw.shape, generator=gen, device=dev)
+    d_out = K2.composite_tiles_bwd(rec_t, starts, counts,
+                                   n_active.reshape(-1), log_t, d_raw, **geo)
+    n = table.shape[1]
+    return (slot, d_out[:, :slot.shape[0]], U1_K * n, n,
+            K1.GEOM_ROWS + n_chan + 1)
+
+
+@pytest.mark.parametrize("form", U1_FORMS)
+@pytest.mark.parametrize("rows", sorted(U1_CHANS))
+def test_cuda_unsort_matches_plain(cuda_device, rows, form):
+    """U1 against its plain version on the card, bitwise, on a rendered
+    scene's pairs and K2's gradient columns: eagerly, in the static form
+    (sink columns), on a tile stripe (subset slots); a second launch
+    bitwise the first, one host launch and one device run each; the rows
+    past the depth row zero; against the per-slot buffer's sum over K
+    (`slot_sum`) within 2 (K - 1) 2^-24 sum |terms|."""
+    from dynamic3dgaussians_tpu_torch.ops import sorted_raster as SR
+    slot, d_pairs, n_slots, n, n_rows = _u1_case(cuda_device, rows, form)
+    assert d_pairs.shape[0] == rows and d_pairs.stride(0) > slot.shape[0]
+    live = slot < n_slots
+    assert int(live.sum()) > 1000
+    assert bool((~live).any()) == (form == "static")
+    launches.zero(U.unsort_sum_cuda)
+    got = U.unsort_sum_cuda(slot, d_pairs, n_slots, n, n_rows)
+    again = U.unsort_sum_cuda(slot, d_pairs, n_slots, n, n_rows)
+    torch.cuda.synchronize()
+    assert U.unsort_sum_cuda.launches == 2
+    assert launches.runs(U.unsort_sum_cuda) == 2
+    want = U.unsort_sum_plain(slot, d_pairs, n_slots, n, n_rows)
+    assert torch.equal(got, want)
+    assert torch.equal(again, got)
+    assert not bool(got[n_rows:].any()) and bool(got[:n_rows].any())
+    full = SR.slot_sum(slot, d_pairs, n_slots, n)[:n_rows]
+    terms = SR.slot_sum(slot, d_pairs.abs(), n_slots, n)[:n_rows]
+    assert bool(((got[:n_rows] - full).abs()
+                 <= 2 * (U1_K - 1) * 2.0 ** -24 * terms).all())
+    if form == "stripe":
+        # some gaussian's live slots skip a k
+        s = slot[live]
+        count = torch.bincount(s % n, minlength=n)
+        last = torch.zeros(n, dtype=torch.int64, device=cuda_device)
+        last = last.scatter_reduce(0, s % n, s // n + 1, "amax")
+        assert bool((last > count).any())
+
+
+def test_cuda_unsort_counts_its_runs_in_a_graph(cuda_device):
+    """U1 captured in a CUDA graph: each replay runs it (its device
+    counter), the host count sees the capture once, and every replay's
+    output is bitwise the eager one."""
+    slot, d_pairs, n_slots, n, n_rows = _u1_case(cuda_device, 16, "static")
+    want = U.unsort_sum_cuda(slot, d_pairs, n_slots, n, n_rows)
+    launches.zero(U.unsort_sum_cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        U.unsort_sum_cuda(slot, d_pairs, n_slots, n, n_rows)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = U.unsort_sum_cuda(slot, d_pairs, n_slots, n, n_rows)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert U.unsort_sum_cuda.launches == 2
+    assert launches.runs(U.unsort_sum_cuda) == 4
+
+
 # ---------------------------------------------------------------- P1
 
 P1_TERMS = ("rigid", "rot", "iso")
@@ -667,19 +797,22 @@ def _p1_world(dev, num_cams=3):
 
 def test_cuda_train_step_and_window_run_p1(cuda_device):
     """A t = 1 train step on the card routes its edge terms through P1 (one
-    forward and one backward launch), and a training window of 4 steps (a
-    CUDA graph of the step, replayed) runs P1 once a step on the device
+    forward and one backward launch) and its render's backward sum through
+    U1 (one launch), and a training window of 4 steps (a CUDA graph of the
+    step, replayed) runs P1 and U1 once a step on the device
     and gives bitwise the same state on a second call from the same
     start."""
     from dynamic3dgaussians_tpu_torch.train import trainer as T
     state, frames, cfg, lrs = _p1_world(cuda_device)
     rcfg = T.raster_config(cfg)
     step = T.make_train_step(cfg, rcfg)
-    before = (P1.edge_losses_cuda.launches, P1.edge_grads_cuda.launches)
+    before = (P1.edge_losses_cuda.launches, P1.edge_grads_cuda.launches,
+              U.unsort_sum_cuda.launches)
     _, _, _, m = step(*state, frames[0], lrs, False)
     torch.cuda.synchronize()
-    assert (P1.edge_losses_cuda.launches,
-            P1.edge_grads_cuda.launches) == (before[0] + 1, before[1] + 1)
+    assert (P1.edge_losses_cuda.launches, P1.edge_grads_cuda.launches,
+            U.unsort_sum_cuda.launches) == (before[0] + 1, before[1] + 1,
+                                            before[2] + 1)
     assert float(m["loss_rigid"]) > 0 and np.isfinite(float(m["loss"]))
 
     sel = torch.tensor([0, 2, 1, 0])
@@ -687,12 +820,14 @@ def test_cuda_train_step_and_window_run_p1(cuda_device):
     stack = T.stack_timestep_data(frames)
     outs = []
     for _ in range(2):
-        launches.zero(P1.edge_losses_cuda)
-        launches.zero(P1.edge_grads_cuda)
+        for fn in (P1.edge_losses_cuda, P1.edge_grads_cuda,
+                   U.unsort_sum_cuda):
+            launches.zero(fn)
         p, o, v, _ = scan(*state, stack, sel, lrs, False)
         torch.cuda.synchronize()
         assert launches.runs(P1.edge_losses_cuda) == 4
         assert launches.runs(P1.edge_grads_cuda) == 4
+        assert launches.runs(U.unsort_sum_cuda) == 4
         outs.append((p, o))
     assert scan.window.stats["replays"] > 0
     (p1, o1), (p2, o2) = outs
@@ -759,14 +894,14 @@ def test_cuda_ego_window_replays_its_eager_steps(cuda_device):
 
 
 def test_cuda_ego_window_runs_each_kernel_once_a_render(cuda_device):
-    """In a replayed ego window the device run counters see K1, K2 and E1
-    five times a step (the ego render and four static ones) and P1's
+    """In a replayed ego window the device run counters see K1, K2, E1 and
+    U1 five times a step (the ego render and four static ones) and P1's
     forward and backward once a step; the host counts see no launch."""
     state, ego, stack, _, scan, lrs = _ego_world(cuda_device)
     sel = torch.zeros(EGO_STEPS, dtype=torch.int64)
     scan(*state, stack, sel, lrs, False)                  # captures
     per_render = (K1.composite_tiles, K2.composite_tiles_bwd,
-                  E1.emit_pairs_cuda)
+                  E1.emit_pairs_cuda, U.unsort_sum_cuda)
     per_step = (P1.edge_losses_cuda, P1.edge_grads_cuda)
     for fn in per_render + per_step:
         launches.zero(fn)
